@@ -1,0 +1,99 @@
+"""Carry parameter trees across: numpy trees and ``.npz`` files to tensors.
+
+A tree is nested dicts and lists with array leaves, as ``lnn_init`` builds
+it.  The file layout is the reference's checkpoint layout
+(``repro.train.checkpoint``): one npz entry per leaf, named by its
+``/``-joined key path such as ``gnn/0/w_self``; an optional ``__step__``
+entry is ignored here.  List positions are decimal keys, so a tree is rebuilt
+from the names alone.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.utils.device import resolve_device
+
+_STEP_KEY = "__step__"
+
+
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to every leaf (dicts and lists kept;
+    tuples become lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def from_numpy(tree, device=None):
+    """The tree with every leaf (a numpy array, or anything ``np.asarray``
+    takes) as a tensor on ``device`` (default: CUDA), dtype kept."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)).to(dev), tree)
+
+
+def to_numpy(tree):
+    """The tree with every tensor leaf as a numpy array on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def flatten_paths(tree, prefix=""):
+    """Yield ``(path, leaf)`` pairs of ``tree``, paths ``/``-joined."""
+    if isinstance(tree, dict):
+        items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from flatten_paths(v, f"{prefix}/{k}" if prefix else k)
+
+
+def save_npz(path: str, tree) -> str:
+    """Atomically write ``tree`` to ``path`` in the ``/``-joined layout."""
+    payload = {k: np.asarray(v) for k, v in flatten_paths(to_numpy(tree))}
+    directory = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        if sorted(int(k) for k in node) != list(range(len(node))):
+            raise ValueError(f"list positions {sorted(node)} are not 0..{len(node) - 1}")
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def load_npz(path: str, device=None):
+    """Read a tree written by :func:`save_npz` (or by the reference's
+    ``save_checkpoint``) onto ``device`` (default: CUDA)."""
+    root: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            if key == _STEP_KEY:
+                continue
+            *parents, leaf = key.split("/")
+            node = root
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return from_numpy(_listify(root), device)

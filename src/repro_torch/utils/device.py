@@ -1,0 +1,19 @@
+"""Where the port's entry points run."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card.
+
+    There is no silent fallback: without CUDA, ``None`` raises and the
+    caller must ask for the CPU (the plain PyTorch path) by name.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: pass device='cpu' to run the plain "
+                "PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,137 @@
+"""The PyTorch/CUDA port stands alone: it imports neither JAX nor the
+reference package, its entry points default to the card and raise without
+one, and its CUDA wrappers and ``chip_smoke.py`` refuse to run off the card
+instead of falling back to the plain path."""
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import LNNConfig, lnn_init
+from repro_torch.core.graph import COOGraph, pad_graph
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.csr_spmm import csr_spmm_cuda
+from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+from repro_torch.kernels.stage2_score import stage2_score_cuda
+from repro_torch.params import from_numpy
+from repro_torch.serve import BatchLayer, KVStore, SpeedLayer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+_REFERENCE_IMPORT = re.compile(r"^\s*(from|import)\s+(repro|jax)(\.|\s|$)", re.M)
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = ("import importlib, json, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] "
+            "in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True, timeout=300)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_reference_or_jax(path):
+    assert not _REFERENCE_IMPORT.search(path.read_text())
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_graph():
+    g = COOGraph(num_nodes=3, src=np.array([1, 2]), dst=np.array([0, 0]),
+                 etype=np.array([3, 3], np.int32), features=np.ones((3, 2)),
+                 node_type=np.array([0, 2, 2]), snapshot=np.zeros(3),
+                 label=np.zeros(3), label_mask=np.zeros(3))
+    return pad_graph(g)
+
+
+@pytest.mark.parametrize("entry", ["lnn_init", "from_numpy", "BatchLayer",
+                                   "SpeedLayer", "PaddedGraph.to"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
+    cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
+    calls = {
+        "lnn_init": lambda: lnn_init(torch.Generator().manual_seed(0), cfg),
+        "from_numpy": lambda: from_numpy({"w": np.zeros(2)}),
+        "BatchLayer": lambda: BatchLayer({}, cfg, KVStore(4)),
+        "SpeedLayer": lambda: SpeedLayer({}, cfg, KVStore(4)),
+        "PaddedGraph.to": lambda: _tiny_graph().to(),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_entry_points_run_on_cpu_when_asked(no_cuda):
+    cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
+    params = lnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert params["input"]["w"].device.type == "cpu"
+    g = _tiny_graph().to("cpu")
+    assert g.nbr_idx.dtype == torch.int32 and g.tower is None
+    assert BatchLayer(params, cfg, KVStore(4), device="cpu").device.type == "cpu"
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A CUDA wrapper never runs the plain version in the kernel's place."""
+    h = torch.zeros(4, 3)
+    idx = torch.zeros(4, 2, dtype=torch.int32)
+    w = torch.zeros(4, 2)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        csr_spmm_cuda(h, idx, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        edge_softmax_agg_cuda(h, h[:, 0].contiguous(), h[:, 0].contiguous(), idx, w, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        stage2_score_cuda(torch.zeros(2, 3, 4), torch.zeros(2, 3), torch.zeros(2, 5), ())
+    assert _build.LAUNCHES == before
+
+
+def test_dispatch_raises_for_other_devices():
+    h = torch.zeros(4, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel path"):
+        ops.csr_spmm(h, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
+                     torch.zeros(4, 2, device="meta"))
+
+
+def test_dispatch_takes_plain_version_for_cpu_tensors():
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.normal(size=(5, 3)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 5, (5, 2)).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(size=(5, 2)).astype(np.float32))
+    before = dict(_build.LAUNCHES)
+    out = ops.csr_spmm(h, idx, w)
+    want = (h.numpy()[idx.numpy()] * w.numpy()[..., None]).sum(1)
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-6)
+    assert _build.LAUNCHES == before
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """No card: the smoke run exits non-zero and prints no result line,
+    from the repository and from a directory holding only the script."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for script in (ROOT / "chip_smoke.py", alone):
+        out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                             text=True, env=env, cwd=script.parent, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
