@@ -14,7 +14,19 @@
    launch counters are zeroed just before and read just after, and the run
    fails if a kernel of the path never launched.  Then a breakdown of one
    scoring micro-batch (KV lookup, stage-2 call, the card's busy share).
-4. Prints one JSON line with every kernel's numbers, then the result line.
+4. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
+   ``gqa_decode``) against their plain versions at the zamba2-1.2b serving
+   shapes and at ragged ones, f32 and bf16, timed beside their bounds and
+   ``scaled_dot_product_attention`` as a yardstick.
+5. Serves zamba2-1.2b at full width and depth in bf16 through
+   ``repro_torch.launch.serve.serve`` (random weights from a seed): prefill
+   4 prompts of 512 tokens, decode 32 tokens, with the launch counters
+   zeroed just before and read just after; then where the time of prefill
+   and of a decode step goes (``torch.profiler``).
+6. In f32 at full width, the kernel path's logits (forward, prefill and 4
+   decode steps) against the port's plain path on the host, and prefill ->
+   decode consistency on the card and on the host.
+7. Prints one JSON line with every kernel's numbers, then the result line.
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
@@ -32,12 +44,17 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 dense tensor-core peak
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 EQUIV_ATOL = 1e-4            # split_equivalence_check bound
 MICRO_BATCH = 16
 GRAPH_INNER = 20             # calls captured per CUDA graph when timing
 GRAPH_REPLAYS = 15
 DEVICE = "cuda"
+ZOO_ARCH = "zamba2-1.2b"
+ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS = 4, 512, 32
+SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # of the output's scale
+ZOO_TOL = 5e-4               # whole-model logits, of their scale
 
 
 def time_ms(fn) -> float:
@@ -65,9 +82,16 @@ def time_ms(fn) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]:
+    """The least time in ms for moving ``nbytes`` and doing ``flops`` on
+    inputs of ``dtype``, and which of the two bounds it."""
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compare(out, want, dtype_name: str) -> float:
@@ -75,12 +99,43 @@ def compare(out, want, dtype_name: str) -> float:
     return float((out.float() - want.float()).abs().max())
 
 
+def compare_scaled(out, want, tol: float, what: str) -> tuple[float, float]:
+    """max |out - want| and that over max |want|; raise if the second is
+    above ``tol``."""
+    err = float((out.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max|d| {err:.3e} > {tol:g} of the scale {scale:.3e}")
+    return err, err / scale
+
+
+def profiled(fn) -> tuple[float, float, list, int]:
+    """Host-clock seconds of ``fn()`` ended by a synchronize, the card's busy
+    share over them, the five kernels with the most device time (ms), and
+    the number of kernels launched.  Device time sums the kernel events of
+    the ``torch.profiler`` trace, each once (an aten op's self device time
+    repeats the time of the kernels it launched, and a kernel launched
+    through ctypes has no aten op)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel: dict = {}
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time_total * 1e-3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    busy = sum(per_kernel.values()) * 1e-3 / wall
+    return wall, busy, [(name[:60], ms) for name, ms in top], len(kernels)
+
+
 def score_breakdown(speed_layer, requests) -> dict:
     """Where one ``SpeedLayer.score`` micro-batch spends its time: host-clock
     medians of the KV lookup and of the stage-2 call (inputs already on the
     card, ended by a synchronize), and the card's busy share over the scoring
-    loop (device time of every kernel in a ``torch.profiler`` trace over the
-    loop's host-clock time)."""
+    loop (:func:`profiled`)."""
     from repro_torch.core import lnn_stage2_online
     from repro_torch.serve.kvstore import pack_key
 
@@ -100,16 +155,268 @@ def score_breakdown(speed_layer, requests) -> dict:
             lnn_stage2_online(speed_layer.params, speed_layer.cfg, *args)
         torch.cuda.synchronize()
         call.append(time.perf_counter() - t0)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for reqs in batches:
-            speed_layer.score(reqs)
-        wall = time.perf_counter() - t0
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    _, busy, _, _ = profiled(lambda: [speed_layer.score(reqs) for reqs in batches])
     return dict(lookup_ms=float(np.median(lookup)) * 1e3,
                 stage2_call_ms=float(np.median(call)) * 1e3,
-                device_busy_share=device_us * 1e-6 / wall)
+                device_busy_share=busy)
+
+
+def zoo_kernel_checks(dev) -> dict:
+    """The zoo's three kernels against their plain versions on the card: at
+    the zamba2-1.2b serving shapes (timed, with bounds and the library
+    yardstick) and at ragged shapes (checked only), in f32 and bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gqa_decode import gqa_decode_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models.common import blockwise_attention
+
+    gen = torch.Generator().manual_seed(2)
+    results: dict = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    def report(name, case):
+        results.setdefault(name, []).append(case)
+        line = f"{name:<15} {case['shape']:<44} max|d|={case['max_abs_err']:.2e}"
+        if case.get("ms") is not None:
+            line += (f" kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us"
+                     f"  bound {case['bound_ms'] * 1e3:6.2f} us ({case['bound_by']})")
+        if case.get("library_ms") is not None:
+            line += (f"  sdpa {case['library_ms'] * 1e3:8.2f} us "
+                     f"(max|d| {case['library_max_abs_err']:.2e})")
+        print(line)
+
+    # ssd_scan: x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N], d [H]
+    def ssd_case(b, s, h, p, n, dtype, timed):
+        name = str(dtype).split(".")[-1]
+        x, bm, cm = randn(b, s, h, p, dtype=dtype), randn(b, s, n, dtype=dtype), \
+            randn(b, s, n, dtype=dtype)
+        dt = (torch.rand(b, s, h, generator=gen) * 0.19 + 0.01).to(dev)
+        a = -(torch.rand(h, generator=gen) * 1.5 + 0.5).to(dev)
+        d = randn(h)
+        args = (x, dt, a, bm, cm, d)
+        out = ssd_scan_cuda(*args)
+        if s % 64 == 0:   # the model's CPU choice: chunked at cfg.ssd_chunk
+            plain = lambda: ref.ssd_chunked_ref(*args, chunk=64)  # noqa: E731
+        else:
+            plain = lambda: ref.ssd_scan_ref(*args)  # noqa: E731
+        err, rel = compare_scaled(out, plain(), SSD_TOL[name], f"ssd_scan {name}")
+        case = dict(shape=f"B={b} S={s} H={h} P={p} N={n} {name}", max_abs_err=err,
+                    err_of_scale=rel, tol_of_scale=SSD_TOL[name], ms=None, plain_ms=None,
+                    bound_ms=None, bound_by=None, library_ms=None)
+        if timed:
+            q = 64   # the kernel's chunk: C·Bᵀ, W·x, C·S and Bᵀ·x per chunk and head
+            flops = b * h * -(-s // q) * 2 * (q * q * n + q * q * p + 2 * q * n * p)
+            case["bound_ms"], case["bound_by"] = bound(tensor_bytes(*args, out), flops, dtype)
+            case["ms"] = time_ms(lambda: ssd_scan_cuda(*args))
+            case["plain_ms"] = time_ms(plain)
+        report("ssd_scan", case)
+
+    # flash_attention: q [B,Hq,Sq,Dh], k/v [B,Hkv,Sk,Dh], q aligned to the keys' end
+    def flash_case(b, hq, hkv, sq, sk, dh, causal, window, dtype, timed):
+        name = str(dtype).split(".")[-1]
+        q, k, v = randn(b, hq, sq, dh, dtype=dtype), randn(b, hkv, sk, dh, dtype=dtype), \
+            randn(b, hkv, sk, dh, dtype=dtype)
+        out = flash_attention_cuda(q, k, v, causal, window)
+        plain = lambda: blockwise_attention(q, k, v, causal=causal, window=window,  # noqa: E731
+                                            block_k=min(512, sk))
+        want = plain()
+        err = compare(out, want, name)
+        if not torch.isfinite(out).all():
+            raise AssertionError("flash_attention: non-finite output")
+        case = dict(shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
+                          f"{'causal' if causal else 'full'} w={window} {name}",
+                    max_abs_err=err, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                    library_ms=None)
+        if timed:
+            qpos = torch.arange(sq)[:, None] + (sk - sq)
+            kpos = torch.arange(sk)[None, :]
+            keep = torch.ones(sq, sk, dtype=torch.bool)
+            if causal:
+                keep &= kpos <= qpos
+            if window is not None:
+                keep &= kpos > qpos - window
+            flops = 4 * dh * b * hq * int(keep.sum())
+            case["bound_ms"], case["bound_by"] = bound(tensor_bytes(q, k, v, out), flops, dtype)
+            case["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v, causal, window))
+            case["plain_ms"] = time_ms(plain)
+            if window is None and sq == sk:
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=causal, enable_gqa=hq != hkv)
+                case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
+                case["library_ms"] = time_ms(sdpa)
+        report("flash_attention", case)
+
+    # gqa_decode: q [B,Hq,Dh], the cache k/v [B,Hkv,S,Dh], kv_len [B]
+    def gqa_case(b, hq, hkv, s, dh, window, lens, dtype, timed):
+        name = str(dtype).split(".")[-1]
+        q, k, v = randn(b, hq, dh, dtype=dtype), randn(b, hkv, s, dh, dtype=dtype), \
+            randn(b, hkv, s, dh, dtype=dtype)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = gqa_decode_cuda(q, k, v, kv_len, window)
+        plain = lambda: ref.gqa_decode_ref(q, k, v, kv_len, window)  # noqa: E731
+        want = plain()
+        err = compare(out, want, name)
+        case = dict(shape=f"B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} w={window} "
+                          f"kv_len={lens} {name}",
+                    max_abs_err=err, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                    library_ms=None)
+        if timed:
+            rows = sum(n - max(n - window, 0) if window else n for n in lens)
+            moved = tensor_bytes(q, out, kv_len) + 2 * rows * hkv * dh * k.element_size()
+            case["bound_ms"], case["bound_by"] = bound(moved, 4 * dh * hq * rows, dtype)
+            case["ms"] = time_ms(lambda: gqa_decode_cuda(q, k, v, kv_len, window))
+            case["plain_ms"] = time_ms(plain)
+            if window is None and min(lens) == s:
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q[:, :, None], k, v, enable_gqa=hq != hkv)[:, :, 0]
+                case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
+                case["library_ms"] = time_ms(sdpa)
+        report("gqa_decode", case)
+
+    s_max = ZOO_SEQ + ZOO_TOKENS
+    for dtype in (torch.float32, torch.bfloat16):
+        # the zamba2-1.2b serving shapes: 64 SSM heads of P=64, N=64; 32 heads of 64
+        ssd_case(ZOO_BATCH, ZOO_SEQ, 64, 64, 64, dtype, timed=True)
+        flash_case(ZOO_BATCH, 32, 32, ZOO_SEQ, ZOO_SEQ, 64, True, None, dtype, timed=True)
+        gqa_case(ZOO_BATCH, 32, 32, s_max, 64, None, [s_max] * ZOO_BATCH, dtype, timed=True)
+        # ragged: padded last chunks (and mamba2-370m's N=128); GQA rep 4 with a
+        # window; Dh=128 with q shorter than the keys; q longer than the keys
+        # (rows with no valid key); per-sequence kv_len with a window
+        ssd_case(2, 200, 8, 64, 64, dtype, timed=False)
+        ssd_case(2, 77, 4, 64, 128, dtype, timed=False)
+        flash_case(2, 16, 4, 200, 200, 64, True, 64, dtype, timed=False)
+        flash_case(2, 4, 2, 100, 130, 128, False, None, dtype, timed=False)
+        flash_case(1, 4, 2, 130, 100, 64, True, None, dtype, timed=False)
+        gqa_case(4, 32, 8, s_max, 64, 128, [1, 37, 300, s_max], dtype, timed=False)
+        gqa_case(4, 16, 4, 300, 128, None, [5, 64, 65, 300], dtype, timed=False)
+    torch.cuda.synchronize()
+    return results
+
+
+def zoo_slice(dev) -> dict:
+    """zamba2-1.2b at full width and depth in bf16 through the serving entry
+    point; launch counts of the counted run; where the time goes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config(ZOO_ARCH)
+    n_super = cfg.num_layers // cfg.attn_every
+    serve(cfg, ZOO_BATCH, ZOO_SEQ, 2, seed=0, device=dev)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    out = serve(cfg, ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS, seed=0, device=dev)
+    counts = dict(_build.LAUNCHES)
+
+    expected = {"ssd_scan": cfg.num_layers, "flash_attention": n_super,
+                "gqa_decode": n_super * ZOO_TOKENS}
+    for name, want in expected.items():
+        if counts[name] != want:
+            raise AssertionError(f"zoo: {name} launched {counts[name]} times, expected {want}")
+    ids = out["token_ids"]
+    if tuple(ids.shape) != (ZOO_BATCH, ZOO_TOKENS + 1) or not out["all_finite"]:
+        raise AssertionError(f"zoo: token ids {tuple(ids.shape)}, finite {out['all_finite']}")
+    if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
+        raise AssertionError("zoo: token id outside the vocabulary")
+    row = dict(arch=cfg.name, dtype=cfg.dtype, batch=ZOO_BATCH, prompt_len=ZOO_SEQ,
+               tokens=ZOO_TOKENS, prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+               ms_per_step=out["ms_per_step"], tokens_per_s=out["tokens_per_s"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=counts)
+
+    # where the time goes: the same weights and prompts, profiled
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ZOO_BATCH, ZOO_SEQ))).to(dev)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(params, cfg, prompts, ZOO_SEQ + ZOO_TOKENS)
+
+    steps = min(8, ZOO_TOKENS)   # within the cache's capacity
+
+    def run_decode():
+        tok = state["logits"].argmax(-1)
+        for _ in range(steps):
+            logits, state["cache"] = decode_step(params, cfg, tok, state["cache"])
+            tok = logits.argmax(-1)
+
+    with torch.no_grad():
+        wall, busy, top, n = profiled(run_prefill)
+        row.update(prefill_profiled_ms=wall * 1e3, prefill_busy_share=busy, prefill_top=top,
+                   prefill_kernels=n)
+        wall, busy, top, n = profiled(run_decode)
+        row.update(step_profiled_ms=wall * 1e3 / steps, decode_busy_share=busy,
+                   decode_top=[(name, ms / steps) for name, ms in top],
+                   step_kernels=n / steps)
+    print(f"zoo {cfg.name} {cfg.dtype} B={ZOO_BATCH} S={ZOO_SEQ}: prefill {out['prefill_s']:.4f} s, "
+          f"decode {out['ms_per_step']:.2f} ms/step ({out['tokens_per_s']:.1f} tok/s) over "
+          f"{ZOO_TOKENS} steps, peak {row['peak_gib']:.2f} GiB, launches {counts}")
+    print(f"zoo card busy: prefill {row['prefill_busy_share']:.1%} of "
+          f"{row['prefill_profiled_ms']:.2f} ms ({row['prefill_kernels']} kernels), decode "
+          f"{row['decode_busy_share']:.1%} of {row['step_profiled_ms']:.2f} ms/step "
+          f"({row['step_kernels']:.0f} kernels per step) (profiled)")
+    for phase in ("prefill_top", "decode_top"):   # device ms per prefill, per step
+        print(f"zoo {phase}: " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in row[phase]))
+    return row
+
+
+def zoo_agreement(dev) -> dict:
+    """f32 at full width: the kernel path's forward, prefill and 4 decode
+    logits against the port's plain path on the host, and prefill -> decode
+    consistency on the card and on the host (the depth of 38 blocks with
+    random weights amplifies f32 rounding, so the host's own consistency is
+    the floor the card is read against), each within ZOO_TOL of the logits'
+    scale."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.params import tree_map
+
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), dtype="float32")
+    b, s, n_dec = 2, 128, 4
+    params = init_params(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s + n_dec)))
+
+    def run(p, device):
+        tok = tokens.to(device)
+        with torch.no_grad():
+            full, _, _ = forward(p, cfg, tok)
+            last, cache = prefill(p, cfg, tok[:, :s], s + n_dec)
+            steps = []
+            for i in range(n_dec):
+                lg, cache = decode_step(p, cfg, tok[:, s + i], cache)
+                steps.append(lg)
+        return [t.float().cpu() for t in (full, last, torch.stack(steps, 1))]
+
+    t0 = time.perf_counter()
+    card = run(params, dev)
+    t1 = time.perf_counter()
+    host = run(tree_map(lambda t: t.cpu(), params), "cpu")
+    t2 = time.perf_counter()
+    gaps = {}
+    for what, got, want in (("forward", card[0], host[0]), ("prefill", card[1], host[1]),
+                            ("decode", card[2], host[2]),
+                            ("card prefill vs forward", card[1], card[0][:, s - 1]),
+                            ("card decode vs forward", card[2], card[0][:, s:]),
+                            # the same check on the host: the model's own rounding floor
+                            ("host prefill vs forward", host[1], host[0][:, s - 1]),
+                            ("host decode vs forward", host[2], host[0][:, s:])):
+        gaps[what] = compare_scaled(got, want, ZOO_TOL, f"zoo f32 {what}")[1]
+    print(f"zoo f32 {cfg.name} full width and depth, B={b} S={s} + {n_dec} decode steps: "
+          "max|d| over the logits' scale: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (limit {ZOO_TOL:g}); card {t1 - t0:.2f} s, host plain path {t2 - t1:.2f} s")
+    return gaps
 
 
 def main() -> int:
@@ -309,6 +616,7 @@ def main() -> int:
             case = stage2_case(g, ty, 37, 48, k=5, h=130, timed=False)
             print(f"ragged stage2_score {case['shape']}: max|d|={case['max_abs_err']:.2e}")
     torch.cuda.synchronize()
+    results.update(zoo_kernel_checks(dev))
 
     # ------------------------------------------------------- 3. the slice
     launches = {name: 0 for name in _build.LAUNCHES}
@@ -393,15 +701,31 @@ def main() -> int:
               f"equivalence gap {gap:.3e}, host gap {cpu_gap:.2e}, launches {counts}")
     print("slice: " + json.dumps(slice_rows))
 
+    # ------------------------------------------------- 5, 6. the zoo slice
+    zoo = zoo_slice(dev)
+    for name in ("ssd_scan", "flash_attention", "gqa_decode"):
+        launches[name] += zoo["launches"][name]
+    zoo["f32_agreement_of_scale"] = zoo_agreement(dev)
+    print("zoo: " + json.dumps(zoo))
+
     # -------------------------------------------------------- 4. kernel line
-    def pick(name, shape_prefix):
-        return next(c for c in results[name] if c["shape"].startswith(shape_prefix))
+    def pick(name, shape_prefix, shape_suffix=""):
+        return next(c for c in results[name] if c["shape"].startswith(shape_prefix)
+                    and c["shape"].endswith(shape_suffix))
 
     chosen = {
         "csr_spmm": pick("csr_spmm", f"N={n} D={deg} H={hdim} float32"),
         "edge_softmax": results["edge_softmax"][0],
         "stage2_score": pick("stage2_score",
                              f"gcn untyped B={MICRO_BATCH} K=8 H=64 F={feat_dim}"),
+        # the zoo slice serves in bf16
+        "ssd_scan": pick("ssd_scan", f"B={ZOO_BATCH} S={ZOO_SEQ} H=64 P=64 N=64 bfloat16"),
+        "flash_attention": pick("flash_attention",
+                                f"B={ZOO_BATCH} Hq=32 Hkv=32 Sq={ZOO_SEQ} Sk={ZOO_SEQ} Dh=64 "
+                                "causal w=None bfloat16"),
+        "gqa_decode": pick("gqa_decode",
+                           f"B={ZOO_BATCH} Hq=32 Hkv=32 S={ZOO_SEQ + ZOO_TOKENS} Dh=64 "
+                           "w=None", "bfloat16"),
     }
     meta = {
         "csr_spmm": ("src/repro_torch/kernels/csrc/csr_spmm.cu",
@@ -410,6 +734,12 @@ def main() -> int:
                          "src/repro/kernels/edge_softmax.py:56"),
         "stage2_score": ("src/repro_torch/kernels/csrc/stage2_score.cu",
                          "src/repro/kernels/stage2_score.py:242"),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:81"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:97"),
+        "gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
+                       "src/repro/kernels/gqa_decode.py:86"),
     }
     kernels = []
     for name, case in chosen.items():
@@ -417,10 +747,11 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=case["max_abs_err"],
-            atol=TOL["float32"]["atol"],
+            atol=TOL["bfloat16" if "bfloat16" in case["shape"] else "float32"]["atol"],
             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
             bound_by=case["bound_by"], library_ms=case["library_ms"],
-            shape=case["shape"], cases=len(results[name])))
+            shape=case["shape"], cases=len(results[name]),
+            **{k: case[k] for k in ("err_of_scale", "tol_of_scale") if k in case}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each kernel, one per successful launch by its wrapper; a run
 #: sets them to 0 and reads them to show which kernels a path went through
-LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0}
+LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0,
+            "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0}
 
 
 def reset_launches() -> None:
@@ -103,6 +104,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.edge_softmax_agg_f32.restype = i
     lib.stage2_score_f32.argtypes = [p, p]
     lib.stage2_score_f32.restype = i
+    for name in ("ssd_scan_f32", "ssd_scan_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    for name in ("flash_attention_f32", "flash_attention_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    for name in ("gqa_decode_f32", "gqa_decode_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
 
 
 @functools.cache

@@ -12,7 +12,11 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.csr_spmm import csr_spmm_cuda
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.gqa_decode import gqa_decode_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.stage2_score import flatten_stage2_params, stage2_score_cuda
+from repro_torch.models.common import blockwise_attention
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -58,3 +62,43 @@ def stage2_score(params, gnn_type, entity_emb, emb_mask, order_feats,
                                  gnn_type=gnn_type, slot_type=slot_type)
     return ref.stage2_score_ref(entity_emb, emb_mask, order_feats, flat,
                                 gnn_type=gnn_type, slot_type=slot_type)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
+    """Prefill attention.  q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh]; q rows
+    aligned to the end of the keys.  The plain version is the reference's
+    XLA path (``blockwise_attention`` over key blocks of min(512, Sk))."""
+    if _on_cuda(q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return blockwise_attention(q, k, v, causal=causal, window=window,
+                               block_k=min(512, k.shape[2]))
+
+
+def gqa_decode(q, k, v, kv_len=None, window: int | None = None):
+    """One-token attention over the cache.  q: [B, Hq, Dh]; k/v:
+    [B, Hkv, S, Dh]; kv_len: [B] int32 valid lengths (None: all S)."""
+    if _on_cuda(q):
+        return gqa_decode_cuda(q, k, v, kv_len=kv_len, window=window)
+    return ref.gqa_decode_ref(q, k, v, kv_len=kv_len, window=window)
+
+
+def ssd_scan(x, dt, a, b, c, d_skip=None, chunk: int = 64,
+             compute_dtype=torch.float32):
+    """Mamba2 SSD scan.  x: [B, S, H, P]; dt: [B, S, H]; a: [H]; b/c:
+    [B, S, N]; d_skip: [H] or None.  Returns y [B, S, H, P] in x's dtype.
+
+    The CUDA kernel takes any S (its own chunk of 64).  On the CPU the
+    choice is the reference's XLA path (``models/mamba.py`` with
+    ``use_pallas=False``): the chunked form at ``chunk`` where it divides S
+    (a whole sequence shorter than 64 is one chunk), else the sequential
+    recurrence; ``compute_dtype`` is the chunked form's intra-chunk dtype.
+    """
+    if _on_cuda(x):
+        return ssd_scan_cuda(x, dt, a, b, c, d_skip)
+    s = x.shape[1]
+    if s % chunk:
+        chunk = s if s < 64 else 1
+    if chunk > 1:
+        return ref.ssd_chunked_ref(x, dt, a, b, c, d_skip, chunk=chunk,
+                                   compute_dtype=compute_dtype)
+    return ref.ssd_scan_ref(x, dt, a, b, c, d_skip)

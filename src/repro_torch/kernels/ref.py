@@ -76,3 +76,146 @@ def stage2_score_ref(entity_emb, emb_mask, order_feats, flat,
     for w, b in p["mlp"]:
         y = torch.relu(y) @ w + b
     return y[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels (transformer zoo)
+# ---------------------------------------------------------------------------
+
+def mha_ref(q, k, v, causal=True, window=None, scale=None):
+    """Full O(S^2) GQA attention oracle.
+
+    q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh]; Hq % Hkv == 0.
+    ``window``: sliding-window size (keys within [i-window+1, i]); q rows
+    are aligned to the end of the keys.  For cross attention causal=False.
+    """
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if scale is None:
+        scale = dh ** -0.5
+    kk = k.repeat_interleave(rep, dim=1)
+    vv = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv)
+
+
+def gqa_decode_ref(q, k, v, kv_len=None, window=None):
+    """Single-token decode attention: the plain version of the gqa_decode
+    kernel, and the reference's inline XLA path (``models/attention.py``).
+
+    q: [B, Hq, Dh]; k/v: [B, Hkv, S, Dh] (the cache); kv_len: [B] valid
+    lengths (None = full).  ``window``: only the last ``window`` valid
+    positions attend.  Logits and the weighted sum in f32 (the
+    probabilities rounded to v's dtype first).  Returns [B, Hq, Dh].
+    """
+    b, hq, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, hkv, rep, dh).float()
+    logits = torch.einsum("bgrd,bgsd->bgrs", qg, k.float()) * (dh ** -0.5)
+    pos = torch.arange(s, device=q.device)[None, :]
+    if kv_len is None:
+        valid = torch.ones((b, s), dtype=torch.bool, device=q.device)
+        hi = torch.full((b, 1), s, device=q.device)
+    else:
+        hi = kv_len.long()[:, None]
+        valid = pos < hi
+    if window is not None:
+        valid &= pos >= hi - window
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bgrs,bgsd->bgrd", p, v.float())
+    return out.reshape(b, hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan_ref(x, dt, a, b, c, d_skip=None):
+    """Sequential SSD recurrence (Mamba2, arXiv 2405.21060).
+
+    x: [B, S, H, P]; dt: [B, S, H] (softplus-activated, > 0); a: [H]
+    (negative decay rates); b, c: [B, S, N] (one group); d_skip: [H] or
+    None.  Returns y [B, S, H, P] in x's dtype.  Per head h, with S_t in
+    R^{N x P}:  S_t = exp(dt_t a_h) S_{t-1} + dt_t (b_t ⊗ x_t),  y_t = S_t^T c_t.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    x32, dt32, b32, c32 = x.float(), dt.float(), b.float(), c.float()
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt32[:, t] * a[None, :])                    # [B, H]
+        upd = torch.einsum("bn,bhp,bh->bhnp", b32[:, t], x32[:, t], dt32[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhnp,bn->bhp", state, c32[:, t]))
+    y = torch.stack(ys, dim=1)
+    if d_skip is not None:
+        y = y + x32 * d_skip[None, None, :, None]
+    return y.to(x.dtype)
+
+
+def ssd_chunked_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64,
+                    compute_dtype=torch.float32):
+    """Chunk-parallel SSD evaluation (the algorithm of the TPU kernel) with
+    plain tensor ops: the reference's XLA path op for op.
+
+    ``compute_dtype`` is the dtype of the big intra-chunk tensors (the
+    [Q, Q, H] decay and weight blocks); state math stays f32.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc = s // chunk
+    cd = compute_dtype
+    xc = x.reshape(bsz, nc, chunk, h, p).to(cd)
+    dtc = dt.reshape(bsz, nc, chunk, h).float()
+    bc = b.reshape(bsz, nc, chunk, n).to(cd)
+    cc = c.reshape(bsz, nc, chunk, n).to(cd)
+
+    # cumulative log-decay within each chunk: l[t] = sum_{u<=t} dt_u * a
+    cum = torch.cumsum(dtc * a[None, None, None, :], dim=2)          # [B,nc,Q,H]
+    total = cum[:, :, -1]                                            # [B,nc,H]
+
+    # intra-chunk: y[t] = sum_{u<=t} c_t·b_u exp(cum[t]-cum[u]) dt_u x_u
+    scores = torch.einsum("bkin,bkjn->bkij", cc.float(), bc.float())  # [B,nc,Q,Q]
+    decay = torch.exp(torch.clamp(cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                                  -60.0, 0.0)).to(cd)                # [B,nc,Q,Q,H]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    w = scores.to(cd)[..., None] * decay * causal[None, None, :, :, None]
+    wd = w.float() * dtc.to(cd).float()[:, :, None, :, :]
+    y_intra = torch.einsum("bkijh,bkjhp->bkihp", wd, xc.float())
+
+    # chunk states: S_k = sum_u exp(total - cum[u]) dt_u (b_u ⊗ x_u)
+    dec_state = torch.exp(torch.clamp(total[:, :, None] - cum, -60.0, 0.0))
+    xw = xc.float() * (dec_state * dtc)[..., None]
+    s_chunk = torch.einsum("bkjn,bkjhp->bkhnp", bc.float(), xw)
+
+    # inter-chunk scan: the state before each chunk, carried with exp(total)
+    carry = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    prev = []
+    for k in range(nc):
+        prev.append(carry)
+        carry = carry * torch.exp(torch.clamp(total[:, k], -60.0, 0.0))[..., None, None] \
+            + s_chunk[:, k]
+    prev_states = torch.stack(prev, dim=1)                           # [B,nc,H,N,P]
+
+    # inter-chunk contribution: y[t] = exp(cum[t]) c_t · S_prev
+    y_inter = torch.einsum("bkin,bkhnp->bkihp", cc.float(), prev_states) \
+        * torch.exp(torch.clamp(cum, -60.0, 0.0))[..., None]
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    if d_skip is not None:
+        y = y + x.float() * d_skip[None, None, :, None]
+    return y.to(x.dtype)

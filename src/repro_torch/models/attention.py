@@ -1,0 +1,145 @@
+"""GQA attention with RoPE: prefill path + cached decode path.
+
+The reference's ``repro.models.attention`` with tensors.  Prefill attention
+goes through ``kernels.ops.flash_attention`` and the decode step's online
+softmax over the cache through ``kernels.ops.gqa_decode`` (the CUDA kernels
+for CUDA tensors, the reference's XLA paths on the CPU).
+
+Physical head padding (``cfg.physical_heads``/``physical_kv_heads``) is kept
+as the reference has it: padded q heads are computed heads whose ``w_o``
+rows are zero; padded kv heads are tied replicas of logical kv heads (or
+zero heads when the padding is ragged).  Cross attention (``kv_x`` /
+``cross=True``) is not ported: no ported configuration uses it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope, dense_init, torch_dtype
+
+
+def _not_ported_cross():
+    raise NotImplementedError(
+        "cross attention is not ported yet (ROADMAP.md queue 1: vlm_super and "
+        "the audio enc/dec groups)")
+
+
+def attn_init(gen: torch.Generator, cfg, cross: bool = False, device=None):
+    if cross:
+        _not_ported_cross()
+    dtype = torch_dtype(cfg.dtype)
+    hq, hkv, dh, d = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim, cfg.d_model
+    wq = dense_init(gen, (d, cfg.num_heads, dh), dtype, device=device)
+    wk = dense_init(gen, (d, cfg.num_kv_heads, dh), dtype, device=device)
+    wv = dense_init(gen, (d, cfg.num_kv_heads, dh), dtype, device=device)
+    wo = dense_init(gen, (hq * dh, d), dtype, device=device)
+    if hkv > cfg.num_kv_heads:
+        if hkv % cfg.num_kv_heads == 0:
+            # kv tying: tile logical heads to physical (TP replication)
+            rep = hkv // cfg.num_kv_heads
+            wk = wk.repeat_interleave(rep, dim=1)
+            wv = wv.repeat_interleave(rep, dim=1)
+        else:
+            # ragged pad: zero kv heads whose q heads have zeroed w_o rows
+            pad = wk.new_zeros((d, hkv - cfg.num_kv_heads, dh))
+            wk = torch.cat([wk, pad], dim=1)
+            wv = torch.cat([wv, pad], dim=1)
+    if hq > cfg.num_heads:
+        wq = torch.cat([wq, wq.new_zeros((d, hq - cfg.num_heads, dh))], dim=1)
+        # zero the wo rows of padded heads so they contribute nothing
+        wo = wo.reshape(hq, dh, d)
+        wo[cfg.num_heads:] = 0.0
+        wo = wo.reshape(hq * dh, d)
+    p = {
+        "wq": wq.reshape(d, hq * dh),
+        "wk": wk.reshape(d, hkv * dh),
+        "wv": wv.reshape(d, hkv * dh),
+        "wo": wo,
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * dh,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv * dh,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv * dh,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params, cfg, x, kv_x=None):
+    """q [B, Hq, S, Dh], k/v [B, Hkv, S, Dh] (views of the projections)."""
+    if kv_x is not None:
+        _not_ported_cross()
+    hq, hkv, dh = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.reshape(b, s, hq, dh).transpose(1, 2)
+    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    return q, k, v
+
+
+def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True):
+    """Full-sequence self attention (prefill).  x: [B, S, d].
+
+    Returns (out [B, S, d], (k, v)) with k/v [B, Hkv, S, Dh] for the cache.
+    The reference's ``attn_impl='banded'`` variant is not ported: it serves
+    only sliding-window configurations, none of which the port has yet."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    if use_rope:
+        pos = torch.arange(s, device=x.device)[None, None, :]
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = ops.flash_attention(q, k, v, causal=causal, window=cfg.window)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ params["wo"], (k, v)
+
+
+def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False):
+    """Single-token decode.  x1: [B, 1, d]; cache: dict(k, v) with
+    k/v: [B, Hkv, S_max, Dh]; pos: the current position (a Python int, the
+    same for every sequence of the batch).
+
+    The new k/v row is written into the cache tensors IN PLACE (a slice
+    assignment at ``pos``, or ``pos % S_max`` for a ring cache), where the
+    reference returns an updated copy; the cache dict is returned for the
+    same call shape.  The attention over the cache is
+    ``kernels.ops.gqa_decode`` with ``kv_len = pos + 1`` for every sequence
+    (the ring's fill level for a ring cache) and the config's window.
+    Returns (out [B, 1, d], cache).
+    """
+    if cross:
+        _not_ported_cross()
+    hq, hkv, dh = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim
+    b = x1.shape[0]
+    q = x1 @ params["wq"]
+    k1 = x1 @ params["wk"]
+    v1 = x1 @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k1 = k1 + params["bk"]
+        v1 = v1 + params["bv"]
+    at = torch.full((1, 1, 1), pos, device=x1.device)
+    q = apply_rope(q.reshape(b, 1, hq, dh).transpose(1, 2), at, cfg.rope_theta)
+    k1 = apply_rope(k1.reshape(b, 1, hkv, dh).transpose(1, 2), at, cfg.rope_theta)
+    v1 = v1.reshape(b, 1, hkv, dh).transpose(1, 2)
+    k, v = cache["k"], cache["v"]
+    cache_len = k.shape[2]
+    ring = bool(cfg.ring_kv_cache and cfg.window and cache_len <= cfg.window)
+    write_pos = pos % cache_len if ring else pos
+    k[:, :, write_pos] = k1[:, :, 0].to(k.dtype)
+    v[:, :, write_pos] = v1[:, :, 0].to(v.dtype)
+    kv_len = torch.full((b,), min(pos + 1, cache_len) if ring else pos + 1,
+                        dtype=torch.int32, device=x1.device)
+    # a ring buffer holds exactly the last `window` positions, so every
+    # valid slot attends (softmax is permutation-invariant, RoPE was applied
+    # at absolute positions before the write)
+    out = ops.gqa_decode(q[:, :, 0].contiguous(), k, v, kv_len=kv_len,
+                         window=None if ring else cfg.window)
+    return out.reshape(b, 1, hq * dh) @ params["wo"], cache

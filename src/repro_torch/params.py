@@ -18,6 +18,8 @@ import torch
 from repro_torch.utils.device import resolve_device
 
 _STEP_KEY = "__step__"
+#: how an npz holds a bfloat16 leaf: its raw 2-byte values, numpy dtype |V2
+_BF16_BITS = np.dtype("V2")
 
 
 def tree_map(fn, tree):
@@ -30,16 +32,40 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _is_bf16(dtype: np.dtype) -> bool:
+    """A numpy bfloat16 (``ml_dtypes``, what ``np.asarray`` of a JAX bf16
+    array gives, recognised by name so ``ml_dtypes`` is never imported), or
+    the 2-byte void form an npz holds it in."""
+    return dtype.name == "bfloat16" or dtype == _BF16_BITS
+
+
+def _leaf_to_tensor(x) -> torch.Tensor:
+    arr = np.array(x, copy=True)
+    if _is_bf16(arr.dtype):
+        # torch.from_numpy refuses ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def from_numpy(tree, device=None):
     """The tree with every leaf (a numpy array, or anything ``np.asarray``
-    takes) as a tensor on ``device`` (default: CUDA), dtype kept."""
+    takes) as a tensor on ``device`` (default: CUDA), dtype kept; bfloat16
+    leaves keep their bits."""
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)).to(dev), tree)
+    return tree_map(lambda x: _leaf_to_tensor(x).to(dev), tree)
 
 
 def to_numpy(tree):
-    """The tree with every tensor leaf as a numpy array on the host."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """The tree with every tensor leaf as a numpy array on the host.  numpy
+    has no bfloat16 of its own, so a bfloat16 leaf comes back as its bits in
+    a 2-byte void array, the form ``np.savez`` gives an ``ml_dtypes``
+    bfloat16 array and ``load_npz`` reads back as bfloat16."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.uint16).numpy().view(_BF16_BITS)
+        return t.numpy()
+    return tree_map(leaf, tree)
 
 
 def flatten_paths(tree, prefix=""):
@@ -85,7 +111,8 @@ def _listify(node):
 
 def load_npz(path: str, device=None):
     """Read a tree written by :func:`save_npz` (or by the reference's
-    ``save_checkpoint``) onto ``device`` (default: CUDA)."""
+    ``save_checkpoint``) onto ``device`` (default: CUDA).  A 2-byte void
+    entry is a bfloat16 leaf (how ``np.savez`` stores one)."""
     root: dict = {}
     with np.load(path) as data:
         for key in data.files:

@@ -7,13 +7,13 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means the CUDA card.
 
-    There is no silent fallback: without CUDA, ``None`` raises and the
-    caller must ask for the CPU (the plain PyTorch path) by name.
+    There is no silent fallback: without CUDA, ``None`` (or a CUDA device)
+    raises and the caller must ask for the CPU (the plain PyTorch path) by
+    name.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: pass device='cpu' to run the plain "
-                "PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev

@@ -18,8 +18,14 @@ from repro_torch.core import LNNConfig, lnn_init
 from repro_torch.core.graph import COOGraph, pad_graph
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.csr_spmm import csr_spmm_cuda
+from repro_torch.configs import get_config
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.gqa_decode import gqa_decode_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.stage2_score import stage2_score_cuda
+from repro_torch.launch import serve as zoo_serve
+from repro_torch.models import init_cache, init_params
 from repro_torch.params import from_numpy
 from repro_torch.serve import BatchLayer, KVStore, SpeedLayer
 
@@ -67,15 +73,21 @@ def _tiny_graph():
 
 
 @pytest.mark.parametrize("entry", ["lnn_init", "from_numpy", "BatchLayer",
-                                   "SpeedLayer", "PaddedGraph.to"])
+                                   "SpeedLayer", "PaddedGraph.to", "zoo init_params",
+                                   "zoo init_cache", "zoo serve", "zoo serve main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
+    zoo = get_config("zamba2-1.2b").reduced()
     calls = {
         "lnn_init": lambda: lnn_init(torch.Generator().manual_seed(0), cfg),
         "from_numpy": lambda: from_numpy({"w": np.zeros(2)}),
         "BatchLayer": lambda: BatchLayer({}, cfg, KVStore(4)),
         "SpeedLayer": lambda: SpeedLayer({}, cfg, KVStore(4)),
         "PaddedGraph.to": lambda: _tiny_graph().to(),
+        "zoo init_params": lambda: init_params(torch.Generator().manual_seed(0), zoo),
+        "zoo init_cache": lambda: init_cache(zoo, 1, 8),
+        "zoo serve": lambda: zoo_serve.serve(zoo, 1, 8, 1),
+        "zoo serve main": lambda: zoo_serve.main(["--arch", "zamba2-1.2b"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -103,6 +115,31 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         stage2_score_cuda(torch.zeros(2, 3, 4), torch.zeros(2, 3), torch.zeros(2, 5), ())
     assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention", "gqa_decode"])
+def test_zoo_cuda_wrappers_refuse_cpu_tensors(kernel):
+    x = torch.zeros(1, 64, 2, 64)
+    dt, a, bc = torch.zeros(1, 64, 2), torch.zeros(2), torch.zeros(1, 64, 16)
+    q = torch.zeros(1, 2, 64)
+    calls = {
+        "ssd_scan": lambda: ssd_scan_cuda(x, dt, a, bc, bc),
+        "flash_attention": lambda: flash_attention_cuda(x, x, x),
+        "gqa_decode": lambda: gqa_decode_cuda(q, x, x),
+    }
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[kernel]()
+    assert _build.LAUNCHES == before
+
+
+def test_zoo_serves_on_cpu_when_asked(no_cuda, capsys):
+    out = zoo_serve.serve(get_config("mamba2-370m").reduced(), 2, 8, 2, seed=0,
+                          device="cpu")
+    assert tuple(out["token_ids"].shape) == (2, 3) and out["all_finite"]
+    zoo_serve.main(["--arch", "zamba2-1.2b", "--batch", "1", "--seq", "8",
+                    "--tokens", "1", "--device", "cpu"])
+    assert "decoded 1 tokens x 1 seqs" in capsys.readouterr().out
 
 
 def test_dispatch_raises_for_other_devices():
