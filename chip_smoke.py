@@ -30,6 +30,8 @@
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
+(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 4 only: a quick
+build, check and timing of the zoo's kernels, with no result line.)
 """
 import json
 import subprocess
@@ -55,18 +57,21 @@ ZOO_ARCH = "zamba2-1.2b"
 ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS = 4, 512, 32
 SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # of the output's scale
 ZOO_TOL = 5e-4               # whole-model logits, of their scale
+COLD_SETS = 6                # decode caches rotated to time gqa_decode cold in L2
 
 
-def time_ms(fn) -> float:
-    """Median device time of one ``fn()`` call: GRAPH_INNER calls are
-    captured in one CUDA graph, each replay is timed with CUDA events."""
-    for _ in range(3):
+def time_ms(*fns) -> float:
+    """Median device time of one call: GRAPH_INNER calls, taking ``fns`` in
+    turn, are captured in one CUDA graph, each replay is timed with CUDA
+    events.  Calls that rotate over inputs larger than the L2 cache find
+    them cold."""
+    for fn in fns * 3:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_INNER):
-            fn()
+        for i in range(GRAPH_INNER):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -175,6 +180,16 @@ def zoo_kernel_checks(dev) -> dict:
 
     gen = torch.Generator().manual_seed(2)
     results: dict = {}
+    failures: list = []
+
+    def check(out, want, dtype_name, what) -> float:
+        """max |out - want|; a case out of tolerance is recorded, and the
+        checks go on so that one run shows every failing case."""
+        try:
+            return compare(out, want, dtype_name)
+        except AssertionError as e:
+            failures.append(f"{what}: {e}")
+            return float((out.float() - want.float()).abs().max())
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen).to(dev, dtype)
@@ -182,6 +197,8 @@ def zoo_kernel_checks(dev) -> dict:
     def report(name, case):
         results.setdefault(name, []).append(case)
         line = f"{name:<15} {case['shape']:<44} max|d|={case['max_abs_err']:.2e}"
+        if case.get("split_max_abs_err") is not None:
+            line += f" (split ref {case['split_max_abs_err']:.2e})"
         if case.get("ms") is not None:
             line += (f" kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us"
                      f"  bound {case['bound_ms'] * 1e3:6.2f} us ({case['bound_by']})")
@@ -225,11 +242,12 @@ def zoo_kernel_checks(dev) -> dict:
         plain = lambda: blockwise_attention(q, k, v, causal=causal, window=window,  # noqa: E731
                                             block_k=min(512, sk))
         want = plain()
-        err = compare(out, want, name)
+        shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
+                 f"{'causal' if causal else 'full'} w={window} {name}")
+        err = check(out, want, name, f"flash_attention {shape}")
         if not torch.isfinite(out).all():
-            raise AssertionError("flash_attention: non-finite output")
-        case = dict(shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
-                          f"{'causal' if causal else 'full'} w={window} {name}",
+            failures.append(f"flash_attention {shape}: non-finite output")
+        case = dict(shape=shape,
                     max_abs_err=err, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
                     library_ms=None)
         if timed:
@@ -260,13 +278,15 @@ def zoo_kernel_checks(dev) -> dict:
         out = gqa_decode_cuda(q, k, v, kv_len, window)
         plain = lambda: ref.gqa_decode_ref(q, k, v, kv_len, window)  # noqa: E731
         want = plain()
-        err = compare(out, want, name)
-        case = dict(shape=f"B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} w={window} "
-                          f"kv_len={lens} {name}",
-                    max_abs_err=err, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
-                    library_ms=None)
+        shape = f"B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} w={window} kv_len={lens} {name}"
+        err = check(out, want, name, f"gqa_decode {shape}")
+        split_err = check(out, ref.gqa_decode_split_ref(q, k, v, kv_len, window), name,
+                          f"gqa_decode {shape} against the split arithmetic")
+        case = dict(shape=shape,
+                    max_abs_err=err, split_max_abs_err=split_err, ms=None, plain_ms=None,
+                    bound_ms=None, bound_by=None, library_ms=None)
         if timed:
-            rows = sum(n - max(n - window, 0) if window else n for n in lens)
+            rows = sum(max(min(n, s) - (max(n - window, 0) if window else 0), 0) for n in lens)
             moved = tensor_bytes(q, out, kv_len) + 2 * rows * hkv * dh * k.element_size()
             case["bound_ms"], case["bound_by"] = bound(moved, 4 * dh * hq * rows, dtype)
             case["ms"] = time_ms(lambda: gqa_decode_cuda(q, k, v, kv_len, window))
@@ -276,6 +296,23 @@ def zoo_kernel_checks(dev) -> dict:
                     q[:, :, None], k, v, enable_gqa=hq != hkv)[:, :, 0]
                 case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
                 case["library_ms"] = time_ms(sdpa)
+            # cold in L2, as in the decode step: the graph rotates over
+            # COLD_SETS caches of this shape, more bytes than the L2 holds
+            sets = [(randn(*k.shape, dtype=dtype), randn(*v.shape, dtype=dtype))
+                    for _ in range(COLD_SETS)]
+            case["cold_ms"] = time_ms(*(
+                lambda k=kc, v=vc: gqa_decode_cuda(q, k, v, kv_len, window) for kc, vc in sets))
+            case["cold_library_ms"] = None
+            if case["library_ms"] is not None:
+                case["cold_library_ms"] = time_ms(*(
+                    lambda k=kc, v=vc: F.scaled_dot_product_attention(
+                        q[:, :, None], k, v, enable_gqa=hq != hkv) for kc, vc in sets))
+            print(f"gqa_decode      {case['shape']:<44} cold in L2 ({COLD_SETS} caches, "
+                  f"{COLD_SETS * tensor_bytes(k, v) / 1e6:.1f} MB): kernel "
+                  f"{case['cold_ms'] * 1e3:8.2f} us"
+                  + (f"  sdpa {case['cold_library_ms'] * 1e3:8.2f} us"
+                     if case["cold_library_ms"] is not None else ""))
+            del sets
         report("gqa_decode", case)
 
     s_max = ZOO_SEQ + ZOO_TOKENS
@@ -292,9 +329,26 @@ def zoo_kernel_checks(dev) -> dict:
         flash_case(2, 16, 4, 200, 200, 64, True, 64, dtype, timed=False)
         flash_case(2, 4, 2, 100, 130, 128, False, None, dtype, timed=False)
         flash_case(1, 4, 2, 130, 100, 64, True, None, dtype, timed=False)
+        # the tensor-core kernel's edges: fewer rows than one mma tile, one
+        # past a tile, Dh=128 over ragged tiles, a window crossing tile edges
+        # with q shorter and longer than the keys
+        for sq in (1, 17, 65):
+            flash_case(2, 4, 4, sq, sq, 64, True, None, dtype, timed=False)
+        flash_case(1, 8, 8, 300, 300, 128, True, None, dtype, timed=False)
+        flash_case(1, 16, 4, 150, 250, 64, True, 64, dtype, timed=False)
+        flash_case(1, 8, 2, 130, 100, 128, True, 40, dtype, timed=False)
         gqa_case(4, 32, 8, s_max, 64, 128, [1, 37, 300, s_max], dtype, timed=False)
         gqa_case(4, 16, 4, 300, 128, None, [5, 64, 65, 300], dtype, timed=False)
+        # no valid position (kv_len 0; a window wholly past S) gives mean(v);
+        # split edges; rep 16 at Dh=128; a cache of one row
+        gqa_case(4, 8, 2, 128, 64, None, [0, 1, 64, 65], dtype, timed=False)
+        gqa_case(4, 4, 4, 96, 64, 16, [0, 5, 120, 100], dtype, timed=False)
+        gqa_case(2, 32, 2, 300, 128, None, [300, 129], dtype, timed=False)
+        gqa_case(2, 4, 4, 1, 64, None, [1, 0], dtype, timed=False)
     torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"{len(failures)} zoo kernel case(s) out of tolerance:\n"
+                             + "\n".join(failures))
     return results
 
 
@@ -461,6 +515,9 @@ def main() -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    if "--zoo-kernels" in sys.argv[1:]:
+        zoo_kernel_checks(dev)
+        return 0
 
     # ----------------------------------------------------------------- data
     t0 = time.perf_counter()

@@ -61,8 +61,9 @@ def _nvcc() -> str:
 
 
 def _digest(sources: list[Path]) -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -114,7 +115,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     for name in ("gqa_decode_f32", "gqa_decode_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
 
 
@@ -159,3 +160,10 @@ def check_tensor(t, name: str, dtypes, shape=None, device=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary, as a kernel
+    that reads it with 16-byte vector loads needs."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: inputs must start on a 16-byte boundary")

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import check_launch, check_tensor, load_library, stream_ptr
+from repro_torch.kernels._build import (check_aligned, check_launch, check_tensor,
+                                       load_library, stream_ptr)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 128)
@@ -37,6 +38,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {dh} not supported; the kernel takes {HEAD_DIMS}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if q.dtype == torch.bfloat16:   # the tensor-core kernel's 16-byte copies
+        check_aligned("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0 or sk == 0:
         return out.zero_()

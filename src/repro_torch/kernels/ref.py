@@ -138,6 +138,48 @@ def gqa_decode_ref(q, k, v, kv_len=None, window=None):
     return out.reshape(b, hq, dh).to(q.dtype)
 
 
+def gqa_decode_split_ref(q, k, v, kv_len=None, window=None, chunk: int = 64):
+    """The gqa_decode kernel's own arithmetic: the cache cut into splits of
+    ``chunk`` rows, a partial (m, l, acc) per split with the probabilities
+    rounded to v's dtype against the split's own max, then the combine in
+    split order.  Used by the tests and ``chip_smoke.py`` only, to keep the
+    kernel's partition and combine rule testable without the card.
+
+    Valid rows are [max(kv_len - window, 0), min(kv_len, S)).  A split with
+    no valid row is neutral (m = -inf, l = 0).  With no valid row at all
+    every slot's logit is -1e30, so each weighs 1 and the result is the
+    mean of v over the S slots, as in the reference.  Returns [B, Hq, Dh].
+    """
+    b, hq, dh = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    n = -(-s // chunk)
+    qg = q.reshape(b, hkv, rep, dh).float()
+    logits = torch.einsum("bgrd,bgsd->bgrs", qg, k.float()) * (dh ** -0.5)
+    pos = torch.arange(s, device=q.device)[None, :]
+    hi = torch.full((b, 1), s, device=q.device) if kv_len is None else kv_len.long()[:, None]
+    valid = pos < hi
+    if window is not None:
+        valid &= pos >= hi - window
+    empty = ~valid.any(-1)                                        # [B]
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    logits = torch.where(valid[:, None, None, :], logits, neg_inf)
+    logits = torch.where(empty[:, None, None, None], torch.full_like(logits, -1e30), logits)
+    logits = F.pad(logits, (0, n * chunk - s), value=float("-inf"))
+    vc = F.pad(v.float(), (0, 0, 0, n * chunk - s)).reshape(b, hkv, n, chunk, dh)
+    logits = logits.reshape(b, hkv, rep, n, chunk)
+    m = logits.amax(-1)                                           # [B, G, R, n]
+    neutral = m == float("-inf")
+    p = torch.exp(logits - torch.where(neutral, 0.0, m)[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bgrnc,bgncd->bgrnd", p.to(v.dtype).float(), vc)
+    mx = m.amax(-1, keepdim=True)
+    w = torch.where(neutral, 0.0, torch.exp(m - mx))
+    den = (l * w).sum(-1).clamp_min(1e-30)
+    out = (acc * w[..., None]).sum(-2) / den[..., None]
+    return out.reshape(b, hq, dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality) scan
 # ---------------------------------------------------------------------------
