@@ -5,14 +5,20 @@
    sm_90a) and prints the card, its power limit and the versions.
 2. Holds every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times both (CUDA events over CUDA-graph
-   replays, median), beside the least time the card could take.
+   replays, median), beside the least time the card could take and the
+   launch floor (a one-element fill timed the same way).  ``stage2_score``
+   is also checked at other depths, heads, batches and widths (the ring of
+   weight tiles at H=130 and H=256), with the shared-memory plan of each
+   case, and a batch of 128 against the same rows in launches of 16, bit
+   for bit.
 3. Runs the Lambda slice end to end for gcn, gat and sage: synthetic
    transactions -> DDS communities -> ``BatchLayer.refresh`` (stage 1 on the
    card, embeddings into the KV store) -> ``SpeedLayer.score`` over every
    order with history (micro-batches of 16, and one of 128) ->
-   ``split_equivalence_check`` against the monolithic forward.  The kernel
-   launch counters are zeroed just before and read just after, and the run
-   fails if a kernel of the path never launched.  Then a breakdown of one
+   ``split_equivalence_check`` against the monolithic forward; the B=128
+   scores must equal the B=16 ones bit for bit.  The kernel launch
+   counters are zeroed just before and read just after, and the run fails
+   if a kernel of the path never launched.  Then a breakdown of one
    scoring micro-batch (KV lookup, stage-2 call, the card's busy share).
 4. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
    ``gqa_decode``) against their plain versions at the zamba2-1.2b serving
@@ -30,8 +36,10 @@
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
-(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 4 only: a quick
-build, check and timing of the zoo's kernels, with no result line.)
+(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 4 only, and
+``--fraud-kernels`` steps 1 and 2's fraud kernels: a quick build, check and
+timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
+times that tree's kernels too, for an A/B in one call.)
 """
 import json
 import subprocess
@@ -157,13 +165,239 @@ def score_breakdown(speed_layer, requests) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            lnn_stage2_online(speed_layer.params, speed_layer.cfg, *args)
+            lnn_stage2_online(speed_layer.params, speed_layer.cfg, *args,
+                              pack=speed_layer.pack)
         torch.cuda.synchronize()
         call.append(time.perf_counter() - t0)
     _, busy, _, _ = profiled(lambda: [speed_layer.score(reqs) for reqs in batches])
     return dict(lookup_ms=float(np.median(lookup)) * 1e3,
                 stage2_call_ms=float(np.median(call)) * 1e3,
                 device_busy_share=busy)
+
+
+def stage2_launcher(flat, gnn: str, typed: bool):
+    """``(call(emb, mask, feats, slot_type), pack)``: this tree's
+    ``stage2_score`` kernel on the weights ``flat``, packed once.  A tree
+    from before the pack (its kernel takes ``flat`` on every call) gives
+    ``pack`` None, so that ``--fraud-kernels`` can time it in an A/B."""
+    from repro_torch.kernels import stage2_score as s2
+
+    if not hasattr(s2, "pack_stage2_params"):
+        return (lambda emb, mask, feats, st: s2.stage2_score_cuda(emb, mask, feats, flat, gnn, st),
+                None)
+    pack = s2.pack_stage2_params(flat, gnn, typed)
+    return (lambda emb, mask, feats, st: s2.stage2_score_cuda(emb, mask, feats, pack, st), pack)
+
+
+def fraud_kernel_checks(dev, batches, feat_dim: int) -> dict:
+    """The fraud slice's three kernels against their plain versions on the
+    card: ``csr_spmm`` and ``edge_softmax`` at the stage-1 shapes of the
+    first community, ``stage2_score`` at the config's and the slice's widths
+    over every bucket (timed, with bounds), then at other depths, heads,
+    batches and widths (checked only).  Prints the launch floor beside."""
+    from repro_torch.core import LNNConfig, lnn_init
+    from repro_torch.core.hetero import ENTITY_TYPE_NAMES
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.csr_spmm import csr_spmm_cuda
+    from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+    from repro_torch.kernels.stage2_score import flatten_stage2_params
+
+    results = {}
+    failures = []
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    g0 = batches[0].graph.to(dev)
+    n, deg, hdim = g0.num_nodes, g0.max_deg, 64
+    stage1_mask = (g0.nbr_mask * (g0.nbr_etype != 3)).contiguous()
+    w_mean = stage1_mask / stage1_mask.sum(-1, keepdim=True).clamp_min(1.0)
+    nnz = int((w_mean != 0).sum())
+    h = randn(n, hdim)
+
+    # csr_spmm: the per-edge-type / SAGE mean of stage 1, f32 and bf16
+    rows_i = torch.arange(n, device=dev)[:, None].expand(n, deg)
+    keep = w_mean != 0
+    sparse = torch.sparse_coo_tensor(
+        torch.stack([rows_i[keep], g0.nbr_idx.long()[keep]]), w_mean[keep],
+        (n, n)).coalesce().to_sparse_csr()
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        hx = h.to(dt)
+        err = compare(csr_spmm_cuda(hx, g0.nbr_idx, w_mean),
+                      ref.csr_spmm_ref(hx, g0.nbr_idx, w_mean), name)
+        es = hx.element_size()
+        b_ms, b_by = bound(2 * n * hdim * es + 2 * n * deg * 4, 2 * nnz * hdim)
+        case = dict(shape=f"N={n} D={deg} H={hdim} {name}", max_abs_err=err,
+                    ms=time_ms(lambda: csr_spmm_cuda(hx, g0.nbr_idx, w_mean)),
+                    plain_ms=time_ms(lambda: ref.csr_spmm_ref(hx, g0.nbr_idx, w_mean)),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if dt == torch.float32:
+            lib_err = float((torch.sparse.mm(sparse, h) - ref.csr_spmm_ref(
+                h, g0.nbr_idx, w_mean)).abs().max())
+            case["library_ms"] = time_ms(lambda: torch.sparse.mm(sparse, h))
+            case["library_max_abs_err"] = lib_err
+        results.setdefault("csr_spmm", []).append(case)
+        print(f"csr_spmm     {case['shape']:<34} max|d|={err:.2e} "
+              f"kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us  "
+              f"bound {b_ms * 1e3:6.3f} us ({b_by})"
+              + (f"  torch.sparse.mm {case['library_ms'] * 1e3:8.2f} us "
+                 f"(max|d| {case['library_max_abs_err']:.2e})"
+                 if case["library_ms"] is not None else ""))
+
+    # edge_softmax: the GAT layer of stage 1 (orders and padding rows are
+    # all-masked there)
+    z, s_src, s_dst = randn(n, hdim), randn(n), randn(n)
+    bias = (randn(n, deg) * 0.1).contiguous()
+    all_masked = int((stage1_mask.sum(-1) == 0).sum())
+    if all_masked == 0:
+        raise AssertionError("edge_softmax check needs all-masked rows")
+    args = (z, s_src, s_dst, g0.nbr_idx, stage1_mask, bias)
+    err = compare(edge_softmax_agg_cuda(*args), ref.edge_softmax_agg_ref(*args), "float32")
+    n_edges = int((stage1_mask > 0).sum())
+    b_ms, b_by = bound(2 * n * hdim * 4 + 2 * n * 4 + 3 * n * deg * 4,
+                       n_edges * (2 * hdim + 8))
+    case = dict(shape=f"N={n} D={deg} H={hdim} f32 ({all_masked} rows all-masked)",
+                max_abs_err=err, ms=time_ms(lambda: edge_softmax_agg_cuda(*args)),
+                plain_ms=time_ms(lambda: ref.edge_softmax_agg_ref(*args)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    results["edge_softmax"] = [case]
+    print(f"edge_softmax {case['shape']:<34} max|d|={err:.2e} "
+          f"kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us  "
+          f"bound {b_ms * 1e3:6.3f} us ({b_by})")
+
+    # the floor any single launch in a CUDA graph pays on this card
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: tiny.zero_())
+    print(f"launch floor: one-element fill {floor_ms * 1e3:6.2f} us (same timing as the kernels)")
+
+    # stage2_score: the config's widths (F=48) over every bucket and B=200,
+    # untyped and typed (T=4); then the slice's own widths (F=12)
+    def stage2_case(gnn, typed, b, f, k=8, h=64, layers=3, mlp=(64, 32), masked="some",
+                    timed=True):
+        cfg = LNNConfig(gnn_type=gnn, num_gnn_layers=layers, hidden_dim=h,
+                        mlp_dims=mlp, feat_dim=f,
+                        entity_types=ENTITY_TYPE_NAMES if typed else ())
+        params = lnn_init(torch.Generator().manual_seed(7), cfg, device=dev)
+        flat = flatten_stage2_params(params, gnn)
+        call, pack = stage2_launcher(flat, gnn, typed)
+        mask = (torch.rand(b, k, generator=gen) < 0.7).float()
+        mask[::5] = 0.0                      # cold-start rows: all slots empty
+        if masked == "all":
+            mask[:] = 0.0
+        mask = mask.to(dev)
+        emb = (randn(b, k, h) * mask[..., None]).contiguous()
+        feats = randn(b, f)
+        st = None
+        if typed:
+            st = torch.randint(-1, len(ENTITY_TYPE_NAMES), (b, k), generator=gen,
+                               dtype=torch.int32).to(dev)
+        out = call(emb, mask, feats, st)
+        want = ref.stage2_score_ref(emb, mask, feats, flat, gnn, st)
+        err = compare(out, want, "float32")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"stage2_score {gnn} B={b}: non-finite logits")
+        same_bits = None
+        if b == 128:   # the same rows in launches of MICRO_BATCH give the same bits
+            parts = [call(*(t[i:i + MICRO_BATCH] for t in (emb, mask, feats)),
+                          None if st is None else st[i:i + MICRO_BATCH])
+                     for i in range(0, b, MICRO_BATCH)]
+            same_bits = torch.equal(torch.cat(parts), out)
+        plan = None
+        if pack is not None:
+            from repro_torch.kernels.stage2_score import smem_optin, stage2_plan
+            p = stage2_plan(pack, k, smem_optin(dev.index))
+            plan = (f"{'resident' if p.whole else 'ring'} {p.rows} rows/block "
+                    f"{p.n_tiles} tiles {p.smem_bytes} B")
+            if p.whole != (h <= 64):
+                raise AssertionError(f"stage2_score H={h}: expected the "
+                                     f"{'resident' if h <= 64 else 'ring'} plan, got {plan}")
+        shape = (f"{gnn} {'typed T=4' if typed else 'untyped'} B={b} K={k} H={h} F={f}"
+                 + ("" if (layers, mlp) == (3, (64, 32)) else f" L={layers} mlp={mlp}")
+                 + (" all-masked" if masked == "all" else ""))
+        case = dict(shape=shape, max_abs_err=err, ms=None, plain_ms=None, bound_ms=None,
+                    bound_by=None, library_ms=None, plan=plan, same_bits=same_bits)
+        if not timed:
+            return case
+        t = len(ENTITY_TYPE_NAMES)
+        wbytes = sum(x.numel() * 4 for x in flat)
+        nbytes = 4 * (b * k * h + b * k + b * f + b + (b * k if typed else 0)) + wbytes
+        dims = (h + f,) + tuple(mlp) + (1,)
+        per_row = f * h + (layers - 1) * h * h + sum(a * c for a, c in zip(dims, dims[1:]))
+        per_row += 2 * h * h + k * h if gnn != "gat" else (k + 2) * h * h + 3 * k * h + h
+        flops = 2 * b * per_row
+        if typed:
+            flops += 2 * int(((st >= 0) & (st < t)).sum()) * h * h
+        case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
+        case["ms"] = time_ms(lambda: call(emb, mask, feats, st))
+        case["plain_ms"] = time_ms(lambda: ref.stage2_score_ref(emb, mask, feats, flat, gnn, st))
+        case["launch_floor_ms"] = floor_ms
+        return case
+
+    def report(case):
+        results.setdefault("stage2_score", []).append(case)
+        line = f"stage2_score {case['shape']:<34} max|d|={case['max_abs_err']:.2e}"
+        if case["ms"] is not None:
+            line += (f" kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us"
+                     f"  bound {case['bound_ms'] * 1e3:6.3f} us ({case['bound_by']})"
+                     f"  floor {floor_ms * 1e3:5.2f} us")
+        if case["plan"] is not None:
+            line += f"  [{case['plan']}]"
+        if case["same_bits"] is not None:
+            line += f"  {MICRO_BATCH}-row launches: {'same' if case['same_bits'] else 'OTHER'} bits"
+            if not case["same_bits"]:
+                failures.append(f"stage2_score {case['shape']}: B={MICRO_BATCH} launches differ")
+        print(line)
+
+    cases = [(g, ty, b, 48) for g in ("gcn", "gat", "sage") for ty in (False, True)
+             for b in (1, 2, 4, 8, 16, 32, 64, 128, 200)]
+    cases += [(g, False, b, feat_dim) for g in ("gcn", "gat", "sage")
+              for b in (MICRO_BATCH, 128)]
+    for g, ty, b, f in cases:
+        report(stage2_case(g, ty, b, f))
+
+    # every branch of the chain, checked but not timed: 2 and 4 GNN layers
+    # (1 and 3 tower layers) under four heads (one layer of width 1, and
+    # width-1 and wider heads after it), one row, a batch with every slot
+    # empty; then ragged and wide sizes, where the weights exceed the
+    # shared memory and stream through the ring (H=130 at K=5, as the
+    # reference tests; H=256, whose matrices are streamed in row tiles)
+    for g in ("gcn", "gat", "sage"):
+        for layers in (2, 4):
+            for mlp in ((), (1,), (32,), (128, 64, 32)):
+                report(stage2_case(g, False, MICRO_BATCH, feat_dim, layers=layers, mlp=mlp,
+                                   timed=False))
+        report(stage2_case(g, False, 1, feat_dim, timed=False))
+        for ty in (False, True):
+            report(stage2_case(g, ty, MICRO_BATCH, 48, masked="all", timed=False))
+            report(stage2_case(g, ty, 37, 48, k=5, h=130, timed=False))
+        report(stage2_case(g, True, 9, 48, h=256, timed=False))
+
+    # ragged sizes, checked but not timed: the reference tests' N=257 and
+    # H=130, D=40 for the edge softmax's loop over chunks of 32 slots
+    rgen = torch.Generator().manual_seed(1)
+    for n_r, d_r, h_r in ((257, 7, 130), (257, 40, 130)):
+        idx_r = torch.randint(0, n_r, (n_r, d_r), generator=rgen, dtype=torch.int32).to(dev)
+        mask_r = (torch.rand(n_r, d_r, generator=rgen) < 0.6).float()
+        mask_r[::7] = 0.0
+        mask_r = mask_r.to(dev)
+        x_r = randn(n_r, h_r)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            errs[f"csr_spmm {name}"] = compare(
+                csr_spmm_cuda(x_r.to(dt), idx_r, mask_r),
+                ref.csr_spmm_ref(x_r.to(dt), idx_r, mask_r), name)
+        args_r = (x_r, randn(n_r), randn(n_r), idx_r, mask_r, (randn(n_r, d_r) * 0.1))
+        errs["edge_softmax"] = compare(edge_softmax_agg_cuda(*args_r),
+                                       ref.edge_softmax_agg_ref(*args_r), "float32")
+        print(f"ragged N={n_r} D={d_r} H={h_r}: "
+              + ", ".join(f"{k} max|d|={v:.2e}" for k, v in errs.items()))
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return results
 
 
 def zoo_kernel_checks(dev) -> dict:
@@ -484,14 +718,10 @@ def main() -> int:
         return 1
 
     from repro_torch.core import LNNConfig, lnn_init, lnn_stage1, lnn_stage2_online
-    from repro_torch.core.hetero import ENTITY_TYPE_NAMES
     from repro_torch.data import (SynthConfig, build_communities,
                                   generate_transactions, make_split_masks,
                                   standardize_features)
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.csr_spmm import csr_spmm_cuda
-    from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
-    from repro_torch.kernels.stage2_score import flatten_stage2_params, stage2_score_cuda
+    from repro_torch.kernels import _build
     from repro_torch.params import from_numpy, to_numpy
     from repro_torch.serve import (BatchLayer, KVStore, SpeedLayer, history_requests,
                                    host_sigmoid, split_equivalence_check)
@@ -532,147 +762,12 @@ def main() -> int:
           f"{len(batches)} communities of {batches[0].graph.num_nodes} padded nodes "
           f"(max_deg {batches[0].graph.max_deg}), {len(requests)} history requests, "
           f"built in {time.perf_counter() - t0:.2f} s on the host")
+    if "--fraud-kernels" in sys.argv[1:]:
+        fraud_kernel_checks(dev, batches, feat_dim)
+        return 0
 
     # ------------------------------------ 2. kernels against their plain versions
-    results = {}
-    gen = torch.Generator().manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen).to(dev)
-
-    g0 = batches[0].graph.to(dev)
-    n, deg, hdim = g0.num_nodes, g0.max_deg, 64
-    stage1_mask = (g0.nbr_mask * (g0.nbr_etype != 3)).contiguous()
-    w_mean = stage1_mask / stage1_mask.sum(-1, keepdim=True).clamp_min(1.0)
-    nnz = int((w_mean != 0).sum())
-    h = randn(n, hdim)
-
-    # csr_spmm: the per-edge-type / SAGE mean of stage 1, f32 and bf16
-    rows_i = torch.arange(n, device=dev)[:, None].expand(n, deg)
-    keep = w_mean != 0
-    sparse = torch.sparse_coo_tensor(
-        torch.stack([rows_i[keep], g0.nbr_idx.long()[keep]]), w_mean[keep],
-        (n, n)).coalesce().to_sparse_csr()
-    for dt in (torch.float32, torch.bfloat16):
-        name = str(dt).split(".")[-1]
-        hx = h.to(dt)
-        err = compare(csr_spmm_cuda(hx, g0.nbr_idx, w_mean),
-                      ref.csr_spmm_ref(hx, g0.nbr_idx, w_mean), name)
-        es = hx.element_size()
-        b_ms, b_by = bound(2 * n * hdim * es + 2 * n * deg * 4, 2 * nnz * hdim)
-        case = dict(shape=f"N={n} D={deg} H={hdim} {name}", max_abs_err=err,
-                    ms=time_ms(lambda: csr_spmm_cuda(hx, g0.nbr_idx, w_mean)),
-                    plain_ms=time_ms(lambda: ref.csr_spmm_ref(hx, g0.nbr_idx, w_mean)),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        if dt == torch.float32:
-            lib_err = float((torch.sparse.mm(sparse, h) - ref.csr_spmm_ref(
-                h, g0.nbr_idx, w_mean)).abs().max())
-            case["library_ms"] = time_ms(lambda: torch.sparse.mm(sparse, h))
-            case["library_max_abs_err"] = lib_err
-        results.setdefault("csr_spmm", []).append(case)
-        print(f"csr_spmm     {case['shape']:<34} max|d|={err:.2e} "
-              f"kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us  "
-              f"bound {b_ms * 1e3:6.3f} us ({b_by})"
-              + (f"  torch.sparse.mm {case['library_ms'] * 1e3:8.2f} us "
-                 f"(max|d| {case['library_max_abs_err']:.2e})"
-                 if case["library_ms"] is not None else ""))
-
-    # edge_softmax: the GAT layer of stage 1 (orders and padding rows are
-    # all-masked there)
-    z, s_src, s_dst = randn(n, hdim), randn(n), randn(n)
-    bias = (randn(n, deg) * 0.1).contiguous()
-    all_masked = int((stage1_mask.sum(-1) == 0).sum())
-    if all_masked == 0:
-        raise AssertionError("edge_softmax check needs all-masked rows")
-    args = (z, s_src, s_dst, g0.nbr_idx, stage1_mask, bias)
-    err = compare(edge_softmax_agg_cuda(*args), ref.edge_softmax_agg_ref(*args), "float32")
-    n_edges = int((stage1_mask > 0).sum())
-    b_ms, b_by = bound(2 * n * hdim * 4 + 2 * n * 4 + 3 * n * deg * 4,
-                       n_edges * (2 * hdim + 8))
-    case = dict(shape=f"N={n} D={deg} H={hdim} f32 ({all_masked} rows all-masked)",
-                max_abs_err=err, ms=time_ms(lambda: edge_softmax_agg_cuda(*args)),
-                plain_ms=time_ms(lambda: ref.edge_softmax_agg_ref(*args)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    results["edge_softmax"] = [case]
-    print(f"edge_softmax {case['shape']:<34} max|d|={err:.2e} "
-          f"kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us  "
-          f"bound {b_ms * 1e3:6.3f} us ({b_by})")
-
-    # stage2_score: the config's widths (F=48) over every bucket and B=200,
-    # untyped and typed (T=4); then the slice's own widths (F=12)
-    def stage2_case(gnn, typed, b, f, k=8, h=64, timed=True):
-        cfg = LNNConfig(gnn_type=gnn, num_gnn_layers=3, hidden_dim=h,
-                        mlp_dims=(64, 32), feat_dim=f,
-                        entity_types=ENTITY_TYPE_NAMES if typed else ())
-        params = lnn_init(torch.Generator().manual_seed(7), cfg, device=dev)
-        flat = flatten_stage2_params(params, gnn)
-        mask = (torch.rand(b, k, generator=gen) < 0.7).float()
-        mask[::5] = 0.0                      # cold-start rows: all slots empty
-        mask = mask.to(dev)
-        emb = (randn(b, k, h) * mask[..., None]).contiguous()
-        feats = randn(b, f)
-        st = None
-        if typed:
-            st = torch.randint(-1, len(ENTITY_TYPE_NAMES), (b, k), generator=gen,
-                               dtype=torch.int32).to(dev)
-        err = compare(stage2_score_cuda(emb, mask, feats, flat, gnn, st),
-                      ref.stage2_score_ref(emb, mask, feats, flat, gnn, st), "float32")
-        case = dict(shape=f"{gnn} {'typed T=4' if typed else 'untyped'} B={b} K={k} "
-                          f"H={h} F={f}", max_abs_err=err, ms=None, plain_ms=None,
-                    bound_ms=None, bound_by=None, library_ms=None)
-        if not timed:
-            return case
-        t = len(ENTITY_TYPE_NAMES)
-        wbytes = sum(x.numel() * 4 for x in flat)
-        nbytes = 4 * (b * k * h + b * k + b * f + b + (b * k if typed else 0)) + wbytes
-        per_row = f * h + 2 * h * h + (h + f) * 64 + 64 * 32 + 32
-        per_row += 2 * h * h + k * h if gnn != "gat" else (k + 2) * h * h + 3 * k * h + h
-        flops = 2 * b * per_row
-        if typed:
-            flops += 2 * int(((st >= 0) & (st < t)).sum()) * h * h
-        case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
-        case["ms"] = time_ms(lambda: stage2_score_cuda(emb, mask, feats, flat, gnn, st))
-        case["plain_ms"] = time_ms(lambda: ref.stage2_score_ref(emb, mask, feats, flat,
-                                                                gnn, st))
-        return case
-
-    cases = [(g, ty, b, 48) for g in ("gcn", "gat", "sage") for ty in (False, True)
-             for b in (1, 2, 4, 8, 16, 32, 64, 128, 200)]
-    cases += [(g, False, b, feat_dim) for g in ("gcn", "gat", "sage")
-              for b in (MICRO_BATCH, 128)]
-    for g, ty, b, f in cases:
-        case = stage2_case(g, ty, b, f)
-        results.setdefault("stage2_score", []).append(case)
-        print(f"stage2_score {case['shape']:<34} max|d|={case['max_abs_err']:.2e} "
-              f"kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us  "
-              f"bound {case['bound_ms'] * 1e3:6.3f} us ({case['bound_by']})")
-
-    # ragged sizes, checked but not timed: the reference tests' N=257 and
-    # H=130, D=40 for the edge softmax's loop over chunks of 32 slots, and
-    # stage 2 at H=130, whose 130x130 weights are staged in two row tiles
-    rgen = torch.Generator().manual_seed(1)
-    for n_r, d_r, h_r in ((257, 7, 130), (257, 40, 130)):
-        idx_r = torch.randint(0, n_r, (n_r, d_r), generator=rgen, dtype=torch.int32).to(dev)
-        mask_r = (torch.rand(n_r, d_r, generator=rgen) < 0.6).float()
-        mask_r[::7] = 0.0
-        mask_r = mask_r.to(dev)
-        x_r = randn(n_r, h_r)
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            name = str(dt).split(".")[-1]
-            errs[f"csr_spmm {name}"] = compare(
-                csr_spmm_cuda(x_r.to(dt), idx_r, mask_r),
-                ref.csr_spmm_ref(x_r.to(dt), idx_r, mask_r), name)
-        args_r = (x_r, randn(n_r), randn(n_r), idx_r, mask_r, (randn(n_r, d_r) * 0.1))
-        errs["edge_softmax"] = compare(edge_softmax_agg_cuda(*args_r),
-                                       ref.edge_softmax_agg_ref(*args_r), "float32")
-        print(f"ragged N={n_r} D={d_r} H={h_r}: "
-              + ", ".join(f"{k} max|d|={v:.2e}" for k, v in errs.items()))
-    for g in ("gcn", "gat", "sage"):
-        for ty in (False, True):
-            case = stage2_case(g, ty, 37, 48, k=5, h=130, timed=False)
-            print(f"ragged stage2_score {case['shape']}: max|d|={case['max_abs_err']:.2e}")
-    torch.cuda.synchronize()
+    results = fraud_kernel_checks(dev, batches, feat_dim)
     results.update(zoo_kernel_checks(dev))
 
     # ------------------------------------------------------- 3. the slice
@@ -720,8 +815,8 @@ def main() -> int:
         if not np.all((probs >= 0) & (probs <= 1)):
             raise AssertionError(f"{gnn}: scores outside [0, 1]")
         batch_gap = float(np.abs(probs128 - probs[:128]).max())
-        if batch_gap > 1e-6:
-            raise AssertionError(f"{gnn}: B=128 and B=16 scores differ by {batch_gap}")
+        if not np.array_equal(probs128, probs[:128]):
+            raise AssertionError(f"{gnn}: B=128 and B=16 scores differ (max {batch_gap})")
 
         # the same inputs through the plain path on the host
         params_cpu = from_numpy(to_numpy(params), "cpu")
@@ -771,7 +866,8 @@ def main() -> int:
                     and c["shape"].endswith(shape_suffix))
 
     chosen = {
-        "csr_spmm": pick("csr_spmm", f"N={n} D={deg} H={hdim} float32"),
+        "csr_spmm": pick("csr_spmm", f"N={batches[0].graph.num_nodes} "
+                                     f"D={batches[0].graph.max_deg} H=64 float32"),
         "edge_softmax": results["edge_softmax"][0],
         "stage2_score": pick("stage2_score",
                              f"gcn untyped B={MICRO_BATCH} K=8 H=64 F={feat_dim}"),

@@ -238,7 +238,7 @@ def lnn_stage2_embed(params, cfg: LNNConfig, entity_emb, emb_mask, order_feats,
 
 
 def lnn_stage2_online(params, cfg: LNNConfig, entity_emb, emb_mask, order_feats,
-                      slot_type=None):
+                      slot_type=None, pack=None):
     """Online scoring path: KV-fetched entity embeddings -> risk logit [B].
 
     entity_emb: [B, K, H] stage-1 embeddings of the ≤K linked effective
@@ -248,10 +248,13 @@ def lnn_stage2_online(params, cfg: LNNConfig, entity_emb, emb_mask, order_feats,
 
     One call of ``kernels.ops.stage2_score``: on CUDA tensors the fused
     kernel (one launch), on CPU tensors its plain version.  The order's
-    stage-1 state is recomputed from ``order_feats`` inside.
+    stage-1 state is recomputed from ``order_feats`` inside.  ``pack``: the
+    weights as ``kernels.stage2_score.pack_stage2_params`` laid them out for
+    the kernel, built once by a caller that scores many batches (packed for
+    this call when omitted).
     """
     return ops.stage2_score(params, cfg.gnn_type, entity_emb, emb_mask,
-                            order_feats, slot_type=slot_type)
+                            order_feats, slot_type=slot_type, pack=pack)
 
 
 # ---------------------------------------------------------------------------

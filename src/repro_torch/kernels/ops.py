@@ -15,7 +15,8 @@ from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.kernels.stage2_score import flatten_stage2_params, stage2_score_cuda
+from repro_torch.kernels.stage2_score import (flatten_stage2_params, pack_stage2_params,
+                                              stage2_score_cuda, unpack_stage2_pack)
 from repro_torch.models.common import blockwise_attention
 
 
@@ -43,23 +44,30 @@ def edge_softmax_agg(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias):
 
 
 def stage2_score(params, gnn_type, entity_emb, emb_mask, order_feats,
-                 slot_type=None):
+                 slot_type=None, pack=None):
     """Whole online stage 2 for a micro-batch: logits [B].
 
     Takes the full ``lnn_init`` tree.  Heterogeneous params (``"typed"`` in
     the tree) select the typed variant: ``slot_type`` is the int32 ``[B, K]``
     entity-type code per slot (-1 = padding/untyped; all -1 when omitted).
+    ``pack`` is the tree's :func:`pack_stage2_params` buffer, built once by
+    a caller that scores many batches; without it the weights are packed
+    (on the card) or flattened (on the host) for this call.
     """
     typed = "typed" in params
-    flat = flatten_stage2_params(params, gnn_type)
+    if pack is not None and (pack.gnn_type, pack.typed) != (gnn_type, typed):
+        raise ValueError(f"the pack holds {pack.gnn_type} weights (typed={pack.typed}), "
+                         f"not {gnn_type} (typed={typed})")
     if not typed:
         slot_type = None
     elif slot_type is None:
         slot_type = torch.full(emb_mask.shape, -1, dtype=torch.int32,
                                device=emb_mask.device)
     if _on_cuda(entity_emb):
-        return stage2_score_cuda(entity_emb, emb_mask, order_feats, flat,
-                                 gnn_type=gnn_type, slot_type=slot_type)
+        if pack is None:
+            pack = pack_stage2_params(flatten_stage2_params(params, gnn_type), gnn_type, typed)
+        return stage2_score_cuda(entity_emb, emb_mask, order_feats, pack, slot_type)
+    flat = unpack_stage2_pack(pack) if pack is not None else flatten_stage2_params(params, gnn_type)
     return ref.stage2_score_ref(entity_emb, emb_mask, order_feats, flat,
                                 gnn_type=gnn_type, slot_type=slot_type)
 

@@ -14,12 +14,13 @@
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.core.lnn import LNNConfig, lnn_forward, lnn_stage1, lnn_stage2_online
+from repro_torch.kernels.stage2_score import flatten_stage2_params, pack_stage2_params
 from repro_torch.serve.kvstore import KVStore, pack_key
 from repro_torch.service.types import ScoreRequest
 from repro_torch.utils.device import resolve_device
@@ -87,6 +88,10 @@ class SpeedLayer:
     requests to fraud probabilities via at most ``k_max`` KV lookups per
     request plus a single ``lnn_stage2_online`` call on ``device`` (default:
     CUDA) — on the card, one launch of the fused ``stage2_score`` kernel.
+
+    ``pack`` holds the weights as the kernel reads them, packed once from
+    ``params`` here (and again if ``params`` is replaced); ``None`` packs
+    them on every call.
     """
 
     params: object
@@ -94,9 +99,16 @@ class SpeedLayer:
     store: KVStore
     k_max: int = 8
     device: object = None
+    pack: object = field(init=False, default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self._repack()
+
+    def _repack(self) -> None:
+        gnn, typed = self.cfg.gnn_type, "typed" in self.params
+        self.pack = pack_stage2_params(flatten_stage2_params(self.params, gnn), gnn, typed)
+        self._packed_params = self.params
 
     def score(self, requests: list) -> np.ndarray:
         """requests: :class:`~repro_torch.service.types.ScoreRequest`s (the
@@ -107,10 +119,13 @@ class SpeedLayer:
         key_lists = [[pack_key(e, t) for (e, t) in r.entity_keys] for r in reqs]
         emb, mask = self.store.lookup_batch(key_lists, self.k_max)
         dev = self.device
+        if self.pack is not None and self.params is not self._packed_params:
+            self._repack()
         with torch.no_grad():
             logits = lnn_stage2_online(
                 self.params, self.cfg, torch.from_numpy(emb).to(dev),
-                torch.from_numpy(mask).to(dev), torch.from_numpy(feats).to(dev))
+                torch.from_numpy(mask).to(dev), torch.from_numpy(feats).to(dev),
+                pack=self.pack)
         return host_sigmoid(logits.cpu().numpy())
 
 

@@ -120,3 +120,19 @@ def test_host_sigmoid_is_element_deterministic():
     for n in (1, 2, 4, 5, 16):
         np.testing.assert_array_equal(host_sigmoid(x[:n]), full[:n])
     np.testing.assert_allclose(full, 1 / (1 + np.exp(-x.astype(np.float64))), rtol=1e-7)
+
+
+def test_speed_layer_pack_built_once_gives_the_same_scores(served):
+    """The weights packed once at construction score exactly as packing them
+    on every call does, and replacing the params repacks them."""
+    cfg, store, params = served["cfg"], served["store"], served["params"]
+    requests = history_requests(served["batches"])[:16]
+    speed = SpeedLayer(params, cfg, store, k_max=16, device="cpu")
+    assert speed.pack is not None
+    per_call = SpeedLayer(params, cfg, store, k_max=16, device="cpu")
+    per_call.pack = None
+    np.testing.assert_array_equal(speed.score(requests), per_call.score(requests))
+    speed.params = {**params, "mlp": [{"w": 2 * lyr["w"], "b": lyr["b"]} for lyr in params["mlp"]]}
+    fresh = SpeedLayer(speed.params, cfg, store, k_max=16, device="cpu")
+    np.testing.assert_array_equal(speed.score(requests), fresh.score(requests))
+    assert not np.array_equal(speed.score(requests), per_call.score(requests))
