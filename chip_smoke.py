@@ -64,8 +64,12 @@ DEVICE = "cuda"
 ZOO_ARCH = "zamba2-1.2b"
 ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS = 4, 512, 32
 SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # of the output's scale
+# bf16 ssd_scan against ref.ssd_scan_mma_ref, which rounds where the kernel
+# rounds: only f32 summation order and exp2 differ, which can move an output
+# by one bf16 step, at most 2^-7 of the scale
+SSD_MMA_TOL = 1e-2
 ZOO_TOL = 5e-4               # whole-model logits, of their scale
-COLD_SETS = 6                # decode caches rotated to time gqa_decode cold in L2
+COLD_SETS = 6                # inputs rotated to time gqa_decode and ssd_scan cold in L2
 
 
 def time_ms(*fns) -> float:
@@ -433,6 +437,9 @@ def zoo_kernel_checks(dev) -> dict:
         line = f"{name:<15} {case['shape']:<44} max|d|={case['max_abs_err']:.2e}"
         if case.get("split_max_abs_err") is not None:
             line += f" (split ref {case['split_max_abs_err']:.2e})"
+        if case.get("mma_max_abs_err") is not None:
+            line += (f" (mma ref {case['mma_max_abs_err']:.2e}, "
+                     f"{case['mma_err_of_scale']:.1e} of scale)")
         if case.get("ms") is not None:
             line += (f" kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us"
                      f"  bound {case['bound_ms'] * 1e3:6.2f} us ({case['bound_by']})")
@@ -441,12 +448,26 @@ def zoo_kernel_checks(dev) -> dict:
                      f"(max|d| {case['library_max_abs_err']:.2e})")
         print(line)
 
+    def check_scaled(out, want, tol, what) -> tuple[float, float]:
+        """max |out - want| and that over the scale of ``want``; a case out of
+        tolerance is recorded, as in :func:`check`."""
+        try:
+            return compare_scaled(out, want, tol, what)
+        except AssertionError as e:
+            failures.append(str(e))
+            err = float((out.float() - want.float()).abs().max())
+            return err, err / float(want.float().abs().max())
+
     # ssd_scan: x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N], d [H]
-    def ssd_case(b, s, h, p, n, dtype, timed):
-        name = str(dtype).split(".")[-1]
+    def ssd_inputs(b, s, h, p, n, dtype):
         x, bm, cm = randn(b, s, h, p, dtype=dtype), randn(b, s, n, dtype=dtype), \
             randn(b, s, n, dtype=dtype)
         dt = (torch.rand(b, s, h, generator=gen) * 0.19 + 0.01).to(dev)
+        return x, dt, bm, cm
+
+    def ssd_case(b, s, h, p, n, dtype, timed):
+        name = str(dtype).split(".")[-1]
+        x, dt, bm, cm = ssd_inputs(b, s, h, p, n, dtype)
         a = -(torch.rand(h, generator=gen) * 1.5 + 0.5).to(dev)
         d = randn(h)
         args = (x, dt, a, bm, cm, d)
@@ -455,16 +476,32 @@ def zoo_kernel_checks(dev) -> dict:
             plain = lambda: ref.ssd_chunked_ref(*args, chunk=64)  # noqa: E731
         else:
             plain = lambda: ref.ssd_scan_ref(*args)  # noqa: E731
-        err, rel = compare_scaled(out, plain(), SSD_TOL[name], f"ssd_scan {name}")
-        case = dict(shape=f"B={b} S={s} H={h} P={p} N={n} {name}", max_abs_err=err,
-                    err_of_scale=rel, tol_of_scale=SSD_TOL[name], ms=None, plain_ms=None,
-                    bound_ms=None, bound_by=None, library_ms=None)
+        shape = f"B={b} S={s} H={h} P={p} N={n} {name}"
+        err, rel = check_scaled(out, plain(), SSD_TOL[name], f"ssd_scan {shape}")
+        case = dict(shape=shape, max_abs_err=err, err_of_scale=rel,
+                    tol_of_scale=SSD_TOL[name], ms=None, plain_ms=None, bound_ms=None,
+                    bound_by=None, library_ms=None)
+        if dtype == torch.bfloat16 and hasattr(ref, "ssd_scan_mma_ref"):
+            # the kernel's own roundings (an older tree, in an A/B, has no model)
+            case["mma_max_abs_err"], case["mma_err_of_scale"] = check_scaled(
+                out, ref.ssd_scan_mma_ref(*args), SSD_MMA_TOL,
+                f"ssd_scan {shape} against the kernel's rounding model")
         if timed:
             q = 64   # the kernel's chunk: C·Bᵀ, W·x, C·S and Bᵀ·x per chunk and head
             flops = b * h * -(-s // q) * 2 * (q * q * n + q * q * p + 2 * q * n * p)
             case["bound_ms"], case["bound_by"] = bound(tensor_bytes(*args, out), flops, dtype)
             case["ms"] = time_ms(lambda: ssd_scan_cuda(*args))
             case["plain_ms"] = time_ms(plain)
+            # cold in L2, as in a prefill: the graph rotates over COLD_SETS
+            # inputs of this shape, more bytes than the L2 holds
+            sets = [ssd_inputs(b, s, h, p, n, dtype) for _ in range(COLD_SETS)]
+            case["cold_ms"] = time_ms(*(
+                lambda x=xs, dt=dts, bm=bs, cm=cs: ssd_scan_cuda(x, dt, a, bm, cm, d)
+                for xs, dts, bs, cs in sets))
+            print(f"ssd_scan        {shape:<44} cold in L2 ({COLD_SETS} input sets, "
+                  f"{COLD_SETS * tensor_bytes(*sets[0]) / 1e6:.1f} MB): kernel "
+                  f"{case['cold_ms'] * 1e3:8.2f} us")
+            del sets
         report("ssd_scan", case)
 
     # flash_attention: q [B,Hq,Sq,Dh], k/v [B,Hkv,Sk,Dh], q aligned to the keys' end
@@ -560,6 +597,10 @@ def zoo_kernel_checks(dev) -> dict:
         # (rows with no valid key); per-sequence kv_len with a window
         ssd_case(2, 200, 8, 64, 64, dtype, timed=False)
         ssd_case(2, 77, 4, 64, 128, dtype, timed=False)
+        # one short chunk, and P=40: a block's 64 columns, 40 of them valid;
+        # P=96: two blocks across P, the second with 32 valid columns
+        ssd_case(2, 40, 3, 40, 64, dtype, timed=False)
+        ssd_case(1, 130, 2, 96, 64, dtype, timed=False)
         flash_case(2, 16, 4, 200, 200, 64, True, 64, dtype, timed=False)
         flash_case(2, 4, 2, 100, 130, 128, False, None, dtype, timed=False)
         flash_case(1, 4, 2, 130, 100, 64, True, None, dtype, timed=False)
@@ -579,6 +620,8 @@ def zoo_kernel_checks(dev) -> dict:
         gqa_case(4, 4, 4, 96, 64, 16, [0, 5, 120, 100], dtype, timed=False)
         gqa_case(2, 32, 2, 300, 128, None, [300, 129], dtype, timed=False)
         gqa_case(2, 4, 4, 1, 64, None, [1, 0], dtype, timed=False)
+    # f32 takes any N and P: N and P not multiples of 4 take its scalar loads
+    ssd_case(1, 70, 2, 6, 10, torch.float32, timed=False)
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"{len(failures)} zoo kernel case(s) out of tolerance:\n"

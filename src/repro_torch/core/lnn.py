@@ -238,17 +238,22 @@ def lnn_stage2_embed(params, cfg: LNNConfig, entity_emb, emb_mask, order_feats,
 
 
 def lnn_stage2_online(params, cfg: LNNConfig, entity_emb, emb_mask, order_feats,
-                      slot_type=None, pack=None):
+                      order_h=None, slot_type=None, *, pack=None):
     """Online scoring path: KV-fetched entity embeddings -> risk logit [B].
 
     entity_emb: [B, K, H] stage-1 embeddings of the ≤K linked effective
     entities (zero rows where absent); emb_mask: [B, K]; order_feats: [B, F]
-    raw checkout features; ``slot_type``: optional [B, K] int32 entity-type
-    codes (heterogeneous models; -1 = padding/untyped slot).
+    raw checkout features; ``order_h``: [B, H] the order's own stage-1
+    state, accepted in the reference's place but not read; ``slot_type``:
+    optional [B, K] int32 entity-type codes (heterogeneous models; -1 =
+    padding/untyped slot).
 
     One call of ``kernels.ops.stage2_score``: on CUDA tensors the fused
-    kernel (one launch), on CPU tensors its plain version.  The order's
-    stage-1 state is recomputed from ``order_feats`` inside.  ``pack``: the
+    kernel (one launch), on CPU tensors its plain version.  Both recompute
+    the order's stage-1 state from ``order_feats``, as the reference's fused
+    path does: stage 1 masks final-hop edges, so that state is a pure
+    function of the order's own features (``lnn_order_tower``), and a given
+    ``order_h`` would be the same values.  ``pack`` (keyword only): the
     weights as ``kernels.stage2_score.pack_stage2_params`` laid them out for
     the kernel, built once by a caller that scores many batches (packed for
     this call when omitted).

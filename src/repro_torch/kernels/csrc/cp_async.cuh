@@ -1,5 +1,5 @@
 // 16-byte asynchronous copies from device memory to shared memory
-// (cp.async, sm_80 and later), shared by the attention kernels.
+// (cp.async, sm_80 and later), shared by the kernels that stage tiles.
 #pragma once
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -11,6 +11,13 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// The same for 4 bytes (pointers 4-byte aligned), through L1.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(pred ? 4 : 0)
                : "memory");
 }
 

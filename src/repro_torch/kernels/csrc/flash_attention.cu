@@ -59,6 +59,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -228,31 +229,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 // ------------------------------------------------------- bf16, tensor cores
 constexpr int MMA_THREADS = 128;   // 4 warps x 16 q rows
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// d += a · b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B
-// (column-major fragment) and a 16x8 f32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
 
 // rows [row0, row0 + 64) of a [rows, DH] matrix into smem rows of stride LD;
 // rows past `rows` are zero-filled

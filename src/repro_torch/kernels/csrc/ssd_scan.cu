@@ -3,54 +3,94 @@
 //     S_t = exp(dt_t a_h) S_{t-1} + dt_t (b_t ⊗ x_t),    y_t = S_t^T c_t + d_h x_t
 //
 // evaluated chunk by chunk: within a chunk of Q=64 steps a causal
-// decay-weighted "attention" (C·Bᵀ ∘ decay ∘ causal)·(dt·x), across chunks
-// an [N, P] f32 state carried in order, plus the state's contribution
-// exp(cum_t)·(c_t · S).
+// decay-weighted "attention" W·x with W = (C·Bᵀ) ∘ exp(cum_i - cum_j) ∘
+// causal · dt_j, across chunks an [N, P] f32 state carried in order, plus
+// the state's contribution exp(cum_i) (c_i · S).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py::ssd_scan_pallas
 // (body _ssd_kernel).  The TPU runs the chunk axis of its grid in order and
 // carries the state in VMEM from one grid step to the next; on Hopper
-// nothing carries over between blocks, so one block owns one (batch, head)
-// pair and loops over the chunks itself, keeping the state in shared memory
-// (16 KB at N=P=64, 32 KB at N=128).  Each chunk's x, b, c and dt are
-// staged in dynamic shared memory as f32 (~84 KB in all at N=P=64, ~133 KB
-// at N=128).  A ragged last chunk gets dt=0 and x=b=c=0 in its padded rows,
-// which makes them exact no-ops, so any S works.  The same
-// clip(., -60, 0) guards every exponent as in _ssd_kernel.  d_skip·x is
+// nothing carries over between blocks, so a block loops over the chunks
+// itself and keeps the state.  A ragged last chunk gets dt=0 and x=b=c=0
+// in its padded rows, which makes them exact no-ops, so any S works.  The
+// same clip(., -60, 0) guards every exponent as in _ssd_kernel.  d_skip·x is
 // fused into the epilogue (one rounding to the output type instead of the
 // reference's two).
 //
 // Bound on the H100: at the zamba2-1.2b prefill shape (B=4 S=512 H=64 P=64
 // N=64, bf16) the function moves ~35 MB (a ~10 µs bound) and, in chunks of
-// 64, does ~4.3 GFLOP: ~4 µs at the bf16 tensor-core peak, but ~64 µs as
-// the f32 FMA on CUDA cores this kernel uses, so its operations bound it.
-// Design: 256 threads as a 16x16 grid, each computing a 4x4
-// register tile of every [64 x 64] product (C·Bᵀ, W·x, C·S, Bᵀ·x), so one
-// shared-memory load feeds four FMAs; rows are padded to an odd stride so
-// the 16 columns a warp reads fall in distinct banks.  Plain FMA on CUDA
-// cores; tensor cores are later work.
+// 64, does ~4.3 GFLOP: ~4 µs at the bf16 tensor-core peak, ~64 µs as f32
+// FMA on CUDA cores.  So once the products run on the tensor cores, bytes
+// and the latency of the chunk chain bound it, not operations.
+//
+// bf16 (the serving path), on the tensor cores.  The four products (C·Bᵀ,
+// W·x, C·S, Bᵀ·x) are mma.sync.m16n8k16 bf16 products with f32
+// accumulators.  Values are rounded to bf16 in three places, and only
+// there (kernels/ref.py::ssd_scan_mma_ref models the same roundings):
+//   - W, computed in f32 from the exact f32 C·Bᵀ of the bf16 inputs, is
+//     rounded to feed W·x;
+//   - the state S, carried across chunks in f32 registers, is rounded to a
+//     bf16 copy in shared memory to feed C·S;
+//   - b_j exp(total - cum_j) dt_j, the operand of the state update, is
+//     rounded after the scaling.
+// The exponents are taken in base 2 (ex2.approx).  A column p of y depends
+// only on column p of x and of S, so a block owns 64 columns of one
+// (batch, head): a grid of (P/64, H, B), 256 blocks at the serving shape,
+// two per SM (~91 KB of shared memory each), so the grid is one wave.  Its
+// 8 warps are 2 halves of the 64 columns x 4 row tiles of the chunk: a warp
+// computes C·S, W·x and y for chunk rows [16 w, 16 w + 16) and its 32
+// columns, and holds state rows [w N/4, (w+1) N/4) of its columns as mma
+// accumulators.  The causal mask gives row tile w w + 1 column tiles of W:
+// the two warps of a row tile split them by parity and swap the rounded
+// fragments through shared memory (a 64-thread named barrier); the second
+// half takes the row tiles in reverse, so each scheduler gets a heavy and
+// a light warp; and the light warps do the rest: the four of row tiles 0
+// and 1 issue the loads, and the first one takes each chunk's prefix sums
+// of dt·a once, for all.  x, b, c (bf16) and dt of chunk k+1 are fetched by
+// 16-byte (dt: 4-byte) cp.async into the second of two stages while chunk
+// k computes; rows are padded by 16 bytes, so ldmatrix reads are free of
+// bank conflicts.  The state's bf16 copy is double-buffered, so one
+// barrier per chunk suffices.  y is staged per warp and written with
+// 16-byte stores.  What bounds it now is the chunk chain (8 chunks in a
+// row per block, each ~6,000 cycles with 16 warps per SM), fed by the
+// shared-memory traffic of the fragment loads (each warp loads its own
+// copy of x, S and b), not bytes or tensor-core operations
+// (ssd_scan_probe.py; PERF.md).  Takes N in {64, 128} and P a
+// multiple of 8.
+//
+// f32 (the zoo's f32 agreement run on the card) keeps CUDA-core f32 FMA:
+// tensor cores would round the products to TF32 (~3 digits).  One block
+// owns one (batch, head) and loops over the chunks, keeping the state in
+// shared memory; each chunk's x, b, c and dt are staged in shared memory.
+// 256 threads as a 16x16 grid, each computing a 4x4 register tile of every
+// [64 x 64] product, so one shared-memory load feeds four FMAs; rows are
+// padded to an odd stride so the 16 columns a warp reads fall in distinct
+// banks.  Rows of x, b and c are read with 16-byte loads where P and N are
+// multiples of 4, with scalar loads otherwise, so any N and P work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int Q = 64;          // chunk length
-constexpr int THREADS = 256;   // a 16 x 16 thread grid
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// ------------------------------------------------------ f32, CUDA cores
+constexpr int F32_THREADS = 256;   // a 16 x 16 thread grid
+
 __device__ __forceinline__ float clip_exp(float v) {
   return expf(fminf(fmaxf(v, -60.f), 0.f));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
-    const T* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const T* __restrict__ bm,
-    const T* __restrict__ cm, const float* __restrict__ d_skip,
-    T* __restrict__ y, int S, int H, int P, int N) {
+template <bool VEC>
+__global__ void __launch_bounds__(F32_THREADS) ssd_scan_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const float* __restrict__ bm,
+    const float* __restrict__ cm, const float* __restrict__ d_skip,
+    float* __restrict__ y, int S, int H, int P, int N) {
   extern __shared__ float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -66,19 +106,45 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 
   const float ah = a[h];
   const float dh = d_skip != nullptr ? d_skip[h] : 0.f;
-  for (int i = tid; i < N * P; i += THREADS) st[i] = 0.f;
+  for (int i = tid; i < N * P; i += F32_THREADS) st[i] = 0.f;
 
   for (int s0 = 0; s0 < S; s0 += Q) {
     __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < Q * P; i += THREADS) {
-      const int r = i / P, p = i - r * P, t = s0 + r;
-      xs[i] = t < S ? to_f32(x[(((size_t)b * S + t) * H + h) * P + p]) : 0.f;
-    }
-    for (int i = tid; i < Q * N; i += THREADS) {
-      const int r = i / N, n = i - r * N, t = s0 + r;
-      const size_t off = ((size_t)b * S + t) * N + n;
-      bs[r * ldn + n] = t < S ? to_f32(bm[off]) : 0.f;
-      cs[r * ldn + n] = t < S ? to_f32(cm[off]) : 0.f;
+    if (VEC) {   // 16-byte loads: rows of x, b and c in fours
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = tid; i < Q * P / 4; i += F32_THREADS) {
+        const int r = i / (P / 4), c = (i - r * (P / 4)) * 4, t = s0 + r;
+        *reinterpret_cast<float4*>(xs + r * P + c) =
+            t < S ? *reinterpret_cast<const float4*>(x + (((size_t)b * S + t) * H + h) * P + c)
+                  : zero;
+      }
+      for (int i = tid; i < Q * N / 4; i += F32_THREADS) {
+        const int r = i / (N / 4), n = (i - r * (N / 4)) * 4, t = s0 + r;
+        const size_t off = ((size_t)b * S + t) * N + n;
+        const float4 bv = t < S ? *reinterpret_cast<const float4*>(bm + off) : zero;
+        const float4 cv = t < S ? *reinterpret_cast<const float4*>(cm + off) : zero;
+        float* bd = bs + r * ldn + n;   // rows of an odd stride: four stores
+        float* cd = cs + r * ldn + n;
+        bd[0] = bv.x;
+        bd[1] = bv.y;
+        bd[2] = bv.z;
+        bd[3] = bv.w;
+        cd[0] = cv.x;
+        cd[1] = cv.y;
+        cd[2] = cv.z;
+        cd[3] = cv.w;
+      }
+    } else {
+      for (int i = tid; i < Q * P; i += F32_THREADS) {
+        const int r = i / P, p = i - r * P, t = s0 + r;
+        xs[i] = t < S ? x[(((size_t)b * S + t) * H + h) * P + p] : 0.f;
+      }
+      for (int i = tid; i < Q * N; i += F32_THREADS) {
+        const int r = i / N, n = i - r * N, t = s0 + r;
+        const size_t off = ((size_t)b * S + t) * N + n;
+        bs[r * ldn + n] = t < S ? bm[off] : 0.f;
+        cs[r * ldn + n] = t < S ? cm[off] : 0.f;
+      }
     }
     if (tid < Q) {
       const int t = s0 + tid;
@@ -164,8 +230,8 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
         for (int c = 0; c < 4; ++c) {
           const int p = p0 + tx + 16 * c;
           if (p >= P) continue;
-          const float v = acc[r][c] + dec * acs[r][c] + dh * xs[i * P + p];
-          store(y + (((size_t)b * S + t) * H + h) * P + p, v);
+          y[(((size_t)b * S + t) * H + h) * P + p] =
+              acc[r][c] + dec * acs[r][c] + dh * xs[i * P + p];
         }
       }
     }
@@ -209,23 +275,365 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
   }
 }
 
-size_t smem_bytes(int P, int N) {
-  return sizeof(float) *
-         ((size_t)N * P + (size_t)Q * P + 2 * (size_t)Q * (N + 1) + (size_t)Q * (Q + 1) + 3 * Q);
+int launch_f32(const void* x, const void* dt, const void* a, const void* b, const void* c,
+               const void* d_skip, void* y, int B, int S, int H, int P, int N, void* stream) {
+  const size_t smem = sizeof(float) * ((size_t)N * P + (size_t)Q * P + 2 * (size_t)Q * (N + 1) +
+                                       (size_t)Q * (Q + 1) + 3 * Q);
+  // 16-byte loads where every row of x, b and c starts on a 16-byte boundary
+  const bool vec = P % 4 == 0 && N % 4 == 0 &&
+                   ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(b) |
+                     reinterpret_cast<size_t>(c)) & 15) == 0;
+  const auto kernel = vec ? ssd_scan_f32_kernel<true> : ssd_scan_f32_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(H, B), F32_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)dt, (const float*)a, (const float*)b, (const float*)c,
+      (const float*)d_skip, (float*)y, S, H, P, N);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* a, const void* b,
-           const void* c, const void* d_skip, void* y, int B, int S, int H,
-           int P, int N, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(P, N);
+// ------------------------------------------------- bf16, tensor cores
+constexpr int THREADS = 256;       // 8 warps: 2 halves of P x 4 row tiles of the chunk
+constexpr int PT = 64;             // columns of P per block
+constexpr int LDX = PT + 8;        // smem row stride of x and the state copy: 16 bytes of pad
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float CLIP2 = -60.f * LOG2E;   // clip(., -60, 0) of an exponent, in base 2
+
+// 2^v for v in [CLIP2, 0]: never below 2^-87, so flushing denormals loses nothing
+__device__ __forceinline__ float clip_exp2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(fminf(fmaxf(v, CLIP2), 0.f)));
+  return r;
+}
+// a bf16 pair times (s0, s1), rounded back to bf16
+__device__ __forceinline__ unsigned scale_bf16x2(unsigned v, float s0, float s1) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  return pack_bf16(f.x * s0, f.y * s1);
+}
+
+// Shared memory: two stages, each c [Q][N + 8] and b [Q][N + 8], x
+// [Q][LDX] (bf16), dt [Q] and its prefix sums cum [Q] and the state
+// update's scales wst [Q] (f32); two bf16 copies of the state [N][LDX]
+// (the one before this chunk, and the one this chunk writes for the next);
+// W's A fragments [row tile][column tile][lane] (uint4); and per warp a
+// [16][LDY] tile that stages its part of y.
+constexpr int LDY = 32 + 8;
+template <int N>
+struct Layout {
+  static constexpr int LDN = N + 8;
+  static constexpr size_t C = 0, B = C + sizeof(bf16) * Q * LDN, X = B + sizeof(bf16) * Q * LDN,
+                          DT = X + sizeof(bf16) * Q * LDX, CUM = DT + sizeof(float) * Q,
+                          WST = CUM + sizeof(float) * Q, STAGE = WST + sizeof(float) * Q,
+                          SS = 2 * STAGE, WB = SS + sizeof(bf16) * 2 * N * LDX,
+                          STG = WB + sizeof(uint4) * 4 * 4 * 32,
+                          BYTES = STG + sizeof(bf16) * (THREADS / 32) * 16 * LDY;
+};
+
+// Chunk s0 into a stage by 16-byte (dt: 4-byte) cp.async, issued by the
+// LOADERS threads of the warps with the lightest chunk (row tiles 0 and
+// 1), thread li of them; dt by the first warp, which takes its prefix sums
+// (chunk_scan).  Rows past S and columns past P are zero-filled, so they
+// are exact no-ops.
+constexpr int LOADERS = 128;
+template <int N>
+__device__ __forceinline__ void load_chunk(unsigned char* stage, const bf16* __restrict__ x,
+                                           const float* __restrict__ dt,
+                                           const bf16* __restrict__ bm,
+                                           const bf16* __restrict__ cm, int li, int b, int h,
+                                           int p0, int s0, int S, int H, int P) {
+  using L = Layout<N>;
+  constexpr int CPR = N / 8, XPR = PT / 8;   // 16-byte pieces per row
+  bf16* cs = reinterpret_cast<bf16*>(stage + L::C);
+  bf16* bs = reinterpret_cast<bf16*>(stage + L::B);
+  bf16* xs = reinterpret_cast<bf16*>(stage + L::X);
+  float* dts = reinterpret_cast<float*>(stage + L::DT);
+  for (int i = li; i < Q * CPR; i += LOADERS) {
+    const int r = i / CPR, col = (i - r * CPR) * 8, t = s0 + r;
+    const bool in = t < S;
+    const size_t off = ((size_t)b * S + (in ? t : 0)) * N + col;
+    cp_async16(cs + r * L::LDN + col, cm + off, in);
+    cp_async16(bs + r * L::LDN + col, bm + off, in);
+  }
+  for (int i = li; i < Q * XPR; i += LOADERS) {
+    const int r = i / XPR, col = (i - r * XPR) * 8, t = s0 + r, p = p0 + col;
+    const bool in = t < S && p < P;
+    cp_async16(xs + r * LDX + col, x + (((size_t)b * S + (in ? t : 0)) * H + h) * P + (in ? p : 0),
+               in);
+  }
+  if (li < 32) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * li + e, t = s0 + r;
+      const bool in = t < S;
+      cp_async4(dts + r, dt + ((size_t)b * S + (in ? t : 0)) * H + h, in);
+    }
+  }
+  cp_async_commit();
+}
+
+// The chunk's inclusive prefix sums of dt·a (base 2) and the state
+// update's scales exp(total - cum_j) dt_j, by one warp, two steps a lane,
+// once dt is in the stage.
+template <int N>
+__device__ __forceinline__ void chunk_scan(unsigned char* stage, float ah2, int lane) {
+  using L = Layout<N>;
+  const float2 dtp = *reinterpret_cast<const float2*>(stage + L::DT + 8 * lane);
+  const float v0 = dtp.x * ah2, v1 = dtp.y * ah2;
+  float run = v0 + v1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, run, off);
+    if (lane >= off) run += o;
+  }
+  const float cum0 = run - (v0 + v1) + v0, cum1 = run;
+  const float total = __shfl_sync(0xffffffffu, cum1, 31);
+  *reinterpret_cast<float2*>(stage + L::CUM + 8 * lane) = make_float2(cum0, cum1);
+  *reinterpret_cast<float2*>(stage + L::WST + 8 * lane) =
+      make_float2(clip_exp2(total - cum0) * dtp.x, clip_exp2(total - cum1) * dtp.y);
+}
+
+// One block: batch b, head h, columns [PT x, PT x + PT).  A warp: columns
+// 32 half + [0, 32) of the block's, chunk rows [16 w, 16 w + 16) and state
+// rows [w N/4, (w+1) N/4).
+template <int N>
+__global__ void __launch_bounds__(THREADS, N == 64 ? 2 : 1) ssd_scan_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const bf16* __restrict__ bm, const bf16* __restrict__ cm, const float* __restrict__ d_skip,
+    bf16* __restrict__ y, int S, int H, int P) {
+  using L = Layout<N>;
+  constexpr int LDN = L::LDN;
+  constexpr int KN = N / 16;      // 16-deep slices of N
+  constexpr int MT = N / 64;      // 16-row tiles of the state per warp
+  constexpr int NP = 4;           // 8-wide column tiles of a warp's 32 columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the four warps of each half take the four row tiles, the second half's
+  // in reverse, so that the two warps on a scheduler (warp % 4) hold row
+  // tiles w and 3 - w: the causal mask gives row tile w w + 1 column tiles
+  const int half = warp / 4, w = half ? 3 - warp % 4 : warp % 4;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = w * 16;              // this warp's chunk rows
+  const int nrow0 = w * (N / 4);        // this warp's state rows
+  const int pc = half * 32;             // this warp's columns within the block's
+  bf16* ss = reinterpret_cast<bf16*>(smem_raw + L::SS);
+  uint4* wb = reinterpret_cast<uint4*>(smem_raw + L::WB) + w * 4 * 32;
+  bf16* stg = reinterpret_cast<bf16*>(smem_raw + L::STG) + warp * 16 * LDY;
+  const float ah2 = a[h] * LOG2E;
+  const float dh = d_skip != nullptr ? d_skip[h] : 0.f;
+
+  float st[MT][NP][4];   // state rows nrow0 + 16 mt + (g, g + 8), columns pc + 8 n + 2 t4 (+1)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NP; ++n) st[mt][n][0] = st[mt][n][1] = st[mt][n][2] = st[mt][n][3] = 0.f;
+
+  const int n_chunks = (S + Q - 1) / Q;
+  const bool loader = w < 2;
+  const int li = (w * 2 + half) * 32 + lane;
+  const bool scanner = warp == 0;   // row tile 0: the lightest chunk
+  if (loader) load_chunk<N>(smem_raw, x, dt, bm, cm, li, b, h, p0, 0, S, H, P);
+  if (scanner) {
+    cp_async_wait<0>();
+    chunk_scan<N>(smem_raw, ah2, lane);
+  }
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    if (loader) cp_async_wait<0>();
+    // chunk kc has landed, and every warp is done with chunk kc - 1: its
+    // stage, and its reads of the state copy this chunk writes
+    __syncthreads();
+    if (loader && kc + 1 < n_chunks)
+      load_chunk<N>(smem_raw + ((kc + 1) & 1) * L::STAGE, x, dt, bm, cm, li, b, h, p0,
+                    (kc + 1) * Q, S, H, P);
+    const unsigned char* stage = smem_raw + (kc & 1) * L::STAGE;
+    const bf16* cs = reinterpret_cast<const bf16*>(stage + L::C);
+    const bf16* bs = reinterpret_cast<const bf16*>(stage + L::B);
+    const bf16* xs = reinterpret_cast<const bf16*>(stage + L::X) + pc;
+    const float* dts = reinterpret_cast<const float*>(stage + L::DT);
+    const float* cum = reinterpret_cast<const float*>(stage + L::CUM);
+    const float* wst = reinterpret_cast<const float*>(stage + L::WST);
+    const int s0 = kc * Q;
+    const float total = cum[Q - 1];
+    const float ci0 = cum[row0 + g], ci1 = cum[row0 + g + 8];   // this lane's rows
+
+    // S = S exp(total) + (b ∘ exp(total - cum) dt)ᵀ · x, and its bf16 copy
+    // for the next chunk's C·S
+    if (kc + 1 < n_chunks) {
+      const float dtot = clip_exp2(total);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[mt][n][e] *= dtot;
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        // the scales at steps 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4 (+1)
+        const float2 wa = *reinterpret_cast<const float2*>(wst + 16 * kk + 2 * t4);
+        const float2 wb = *reinterpret_cast<const float2*>(wst + 16 * kk + 8 + 2 * t4);
+        unsigned xf[NP / 2][4];
+#pragma unroll
+        for (int np = 0; np < NP / 2; ++np)
+          ldsm_x4_trans(xs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * LDX + np * 16 +
+                            lane / 16 * 8,
+                        xf[np]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          unsigned af[4];   // Bᵀ rows nrow0 + 16 mt .., steps 16 kk ..
+          ldsm_x4_trans(bs + (kk * 16 + lane / 16 * 8 + lane % 8) * LDN + nrow0 + mt * 16 +
+                            (lane / 8 % 2) * 8,
+                        af);
+          af[0] = scale_bf16x2(af[0], wa.x, wa.y);
+          af[1] = scale_bf16x2(af[1], wa.x, wa.y);
+          af[2] = scale_bf16x2(af[2], wb.x, wb.y);
+          af[3] = scale_bf16x2(af[3], wb.x, wb.y);
+#pragma unroll
+          for (int np = 0; np < NP / 2; ++np) {
+            mma_bf16(st[mt][2 * np], af, xf[np][0], xf[np][1]);
+            mma_bf16(st[mt][2 * np + 1], af, xf[np][2], xf[np][3]);
+          }
+        }
+      }
+      bf16* next = ss + ((kc + 1) & 1) * N * LDX + pc;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          bf16* dst = next + (nrow0 + mt * 16 + g) * LDX + n * 8 + 2 * t4;
+          *reinterpret_cast<unsigned*>(dst) = pack_bf16(st[mt][n][0], st[mt][n][1]);
+          *reinterpret_cast<unsigned*>(dst + 8 * LDX) = pack_bf16(st[mt][n][2], st[mt][n][3]);
+        }
+    }
+
+    // this warp's 16 rows of C as A fragments
+    unsigned cf[KN][4];
+#pragma unroll
+    for (int kk = 0; kk < KN; ++kk)
+      ldsm_x4(cs + (row0 + lane % 8 + (lane / 8 % 2) * 8) * LDN + kk * 16 + lane / 16 * 8, cf[kk]);
+
+    // C·Bᵀ over the column tiles the causal mask keeps (np <= w), then W =
+    // (C·Bᵀ) exp(cum_i - cum_j) dt_j for j <= i, rounded to bf16 as A
+    // fragments (the m16n8 accumulator layout is the m16n8k16 A layout).
+    // The two halves of the head's row tile split the column tiles by
+    // parity and swap their fragments through shared memory.
+    const auto w_tile = [&](int np) {
+      float gacc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk) {
+        unsigned bf[4];   // steps 16 np + 0-7 / 8-15, N slice halves 0-7 / 8-15
+        ldsm_x4(bs + (np * 16 + lane % 8 + lane / 16 * 8) * LDN + kk * 16 + (lane / 8 % 2) * 8,
+                bf);
+        mma_bf16(gacc[0], cf[kk], bf[0], bf[1]);
+        mma_bf16(gacc[1], cf[kk], bf[2], bf[3]);
+      }
+      unsigned f[4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = 16 * np + 8 * hf + 2 * t4, i0 = row0 + g, i1 = i0 + 8;
+        const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+        const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+        const float* s = gacc[hf];
+        const float w0 = j <= i0 ? s[0] * clip_exp2(ci0 - cj.x) * dj.x : 0.f;
+        const float w1 = j + 1 <= i0 ? s[1] * clip_exp2(ci0 - cj.y) * dj.y : 0.f;
+        const float w2 = j <= i1 ? s[2] * clip_exp2(ci1 - cj.x) * dj.x : 0.f;
+        const float w3 = j + 1 <= i1 ? s[3] * clip_exp2(ci1 - cj.y) * dj.y : 0.f;
+        f[2 * hf] = pack_bf16(w0, w1);
+        f[2 * hf + 1] = pack_bf16(w2, w3);
+      }
+      wb[np * 32 + lane] = make_uint4(f[0], f[1], f[2], f[3]);
+    };
+    // this half's column tiles np <= w of its parity: 2, 1 or none, the
+    // two written out in one straight line so that their chains overlap
+    if (w >= half + 2) {
+      w_tile(half);
+      w_tile(half + 2);
+    } else if (w >= half) {
+      w_tile(half);
+    }
+    // the two warps of this row tile: named barrier 1 + w
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + w) : "memory");
+
+    // W·x over the steps the causal mask keeps
+    float yacc[NP][4];
+#pragma unroll
+    for (int n = 0; n < NP; ++n) yacc[n][0] = yacc[n][1] = yacc[n][2] = yacc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < Q / 16; ++kk) {
+      if (kk > w) break;
+      const uint4 v = wb[kk * 32 + lane];
+      const unsigned wf[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int np = 0; np < NP / 2; ++np) {
+        unsigned xf[4];
+        ldsm_x4_trans(xs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * LDX + np * 16 +
+                          lane / 16 * 8,
+                      xf);
+        mma_bf16(yacc[2 * np], wf, xf[0], xf[1]);
+        mma_bf16(yacc[2 * np + 1], wf, xf[2], xf[3]);
+      }
+    }
+
+    // C·S with the state before this chunk
+    float ycs[NP][4];
+#pragma unroll
+    for (int n = 0; n < NP; ++n) ycs[n][0] = ycs[n][1] = ycs[n][2] = ycs[n][3] = 0.f;
+    if (kc > 0) {
+      const bf16* cur = ss + (kc & 1) * N * LDX + pc;
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk)
+#pragma unroll
+        for (int np = 0; np < NP / 2; ++np) {
+          unsigned sf[4];
+          ldsm_x4_trans(cur + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * LDX + np * 16 +
+                            lane / 16 * 8,
+                        sf);
+          mma_bf16(ycs[2 * np], cf[kk], sf[0], sf[1]);
+          mma_bf16(ycs[2 * np + 1], cf[kk], sf[2], sf[3]);
+        }
+    }
+
+    // y = W·x + exp(cum_i) C·S + d x, staged in this warp's tile
+    const float e0 = clip_exp2(ci0), e1 = clip_exp2(ci1);
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int c = n * 8 + 2 * t4;
+      const float2 xa = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + (row0 + g) * LDX + c));
+      const float2 xb = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + (row0 + g + 8) * LDX + c));
+      *reinterpret_cast<unsigned*>(stg + g * LDY + c) =
+          pack_bf16(yacc[n][0] + e0 * ycs[n][0] + dh * xa.x,
+                    yacc[n][1] + e0 * ycs[n][1] + dh * xa.y);
+      *reinterpret_cast<unsigned*>(stg + (g + 8) * LDY + c) =
+          pack_bf16(yacc[n][2] + e1 * ycs[n][2] + dh * xb.x,
+                    yacc[n][3] + e1 * ycs[n][3] + dh * xb.y);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * NP; i += 32) {
+      const int r = i / NP, c = (i - r * NP) * 8, t = s0 + row0 + r, p = p0 + pc + c;
+      if (t < S && p < P)
+        *reinterpret_cast<uint4*>(y + (((size_t)b * S + t) * H + h) * P + p) =
+            *reinterpret_cast<const uint4*>(stg + r * LDY + c);
+    }
+    if (scanner && kc + 1 < n_chunks) {   // the next chunk's prefix sums
+      cp_async_wait<0>();
+      chunk_scan<N>(smem_raw + ((kc + 1) & 1) * L::STAGE, ah2, lane);
+    }
+  }
+}
+
+template <int N>
+int launch_bf16(const void* x, const void* dt, const void* a, const void* b, const void* c,
+                const void* d_skip, void* y, int B, int S, int H, int P, void* stream) {
+  const size_t smem = Layout<N>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ssd_scan_bf16_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_scan_kernel<T><<<dim3(H, B), THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)dt, (const float*)a, (const T*)b, (const T*)c,
-      (const float*)d_skip, (T*)y, S, H, P, N);
+  ssd_scan_bf16_kernel<N><<<dim3((P + PT - 1) / PT, H, B), THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)dt, (const float*)a, (const bf16*)b, (const bf16*)c,
+      (const float*)d_skip, (bf16*)y, S, H, P);
   return (int)cudaGetLastError();
 }
 
@@ -235,12 +643,18 @@ extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* a,
                             const void* b, const void* c, const void* d_skip,
                             void* y, int B, int S, int H, int P, int N,
                             void* stream) {
-  return launch<float>(x, dt, a, b, c, d_skip, y, B, S, H, P, N, stream);
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  return launch_f32(x, dt, a, b, c, d_skip, y, B, S, H, P, N, stream);
 }
 
+// N in {64, 128} and P a multiple of 8 (the wrapper raises otherwise)
 extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
                              const void* b, const void* c, const void* d_skip,
                              void* y, int B, int S, int H, int P, int N,
                              void* stream) {
-  return launch<__nv_bfloat16>(x, dt, a, b, c, d_skip, y, B, S, H, P, N, stream);
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % 8 != 0 || H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (N == 64) return launch_bf16<64>(x, dt, a, b, c, d_skip, y, B, S, H, P, stream);
+  if (N == 128) return launch_bf16<128>(x, dt, a, b, c, d_skip, y, B, S, H, P, stream);
+  return (int)cudaErrorInvalidValue;
 }

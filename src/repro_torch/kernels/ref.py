@@ -12,6 +12,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.stage2_score import unpack_stage2_params
 
+_LOG2E = 1.4426950408889634
+
 
 def csr_spmm_ref(h, nbr_idx, weights):
     """out[i] = sum_d weights[i, d] * h[nbr_idx[i, d]], accumulated in f32.
@@ -261,3 +263,61 @@ def ssd_chunked_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     if d_skip is not None:
         y = y + x.float() * d_skip[None, None, :, None]
     return y.to(x.dtype)
+
+
+def ssd_scan_mma_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64):
+    """The bf16 ssd_scan kernel's own arithmetic: the chunked algorithm of
+    :func:`ssd_chunked_ref` with x, b and c taken as bf16 and values rounded
+    to bf16 exactly where the kernel rounds them to feed its tensor-core
+    products, all sums in f32.  Used by the tests and ``chip_smoke.py``
+    only, to keep those roundings testable without the card.
+
+    The rounded values: W = (C·Bᵀ) exp(cum_i - cum_j) dt_j (masked to
+    j <= i) for W·x; the state before each chunk for C·S (the carried state
+    stays f32); b_j exp(total - cum_j) dt_j for the state update.  The
+    exponents are taken in base 2 (dt·a·log2 e, clipped to -60·log2 e and
+    0), as the kernel does.  A ragged last chunk is padded with no-op rows
+    (dt = 0, x = b = c = 0), so any S works.  Returns y [B, S, H, P] in
+    x's dtype.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def rounded(t):
+        return t.to(torch.bfloat16).float()
+
+    def clip_exp2(v):
+        return torch.exp2(torch.clamp(v, -60.0 * _LOG2E, 0.0))
+
+    xc = F.pad(rounded(x), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk, h, p)
+    dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(bsz, nc, chunk, h)
+    bc = F.pad(rounded(b), (0, 0, 0, pad)).reshape(bsz, nc, chunk, n)
+    cc = F.pad(rounded(c), (0, 0, 0, pad)).reshape(bsz, nc, chunk, n)
+
+    cum = torch.cumsum(dtc * (a.float() * _LOG2E)[None, None, None, :], dim=2)  # base 2
+    total = cum[:, :, -1]                                                     # [B,nc,H]
+
+    # intra-chunk: W rounded to bf16, then W·x
+    scores = torch.einsum("bkin,bkjn->bkij", cc, bc)
+    decay = clip_exp2(cum[:, :, :, None, :] - cum[:, :, None, :, :])          # [B,nc,Q,Q,H]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    w = scores[..., None] * decay * dtc[:, :, None, :, :]
+    w = rounded(torch.where(causal[None, None, :, :, None], w, torch.zeros_like(w)))
+    y_intra = torch.einsum("bkijh,bkjhp->bkihp", w, xc)
+
+    # chunk states from the rounded operand b_j exp(total - cum_j) dt_j
+    bw = rounded(bc[..., None] * (clip_exp2(total[:, :, None] - cum) * dtc)[:, :, :, None, :])
+    s_chunk = torch.einsum("bkjnh,bkjhp->bkhnp", bw, xc)
+
+    # the state carried in f32; C·S reads its bf16 copy
+    carry = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    y_inter = []
+    for k in range(nc):
+        y_inter.append(torch.einsum("bin,bhnp->bihp", cc[:, k], rounded(carry)))
+        carry = carry * clip_exp2(total[:, k])[..., None, None] + s_chunk[:, k]
+    y = y_intra + torch.stack(y_inter, dim=1) * clip_exp2(cum)[..., None]
+    if d_skip is not None:
+        y = y + xc * d_skip[None, None, None, :, None]
+    return y.reshape(bsz, nc * chunk, h, p)[:, :s].to(x.dtype)

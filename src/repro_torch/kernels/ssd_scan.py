@@ -9,9 +9,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import check_launch, check_tensor, load_library, stream_ptr
+from repro_torch.kernels._build import (check_aligned, check_launch, check_tensor, load_library,
+                                       stream_ptr)
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_BF16_N = (64, 128)   # the state widths the bf16 kernel is built for
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -20,7 +22,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Launch the kernel.  ``x`` [B, S, H, P], ``b``/``c`` [B, S, N], all
     float32 or all bfloat16; ``dt`` [B, S, H], ``a`` [H] and ``d_skip`` [H]
     float32; all contiguous on one CUDA device.  Any S (the last chunk is
-    padded with exact no-op rows).  Returns y [B, S, H, P] in x's dtype,
+    padded with exact no-op rows).  float32 takes any N and P; bfloat16 (the
+    tensor-core kernel) takes N in (64, 128) and P a multiple of 8, with x,
+    b and c on 16-byte boundaries.  Returns y [B, S, H, P] in x's dtype,
     with ``d_skip * x`` added when ``d_skip`` is given."""
     check_tensor(x, "x", _DTYPES)
     if x.dim() != 4:
@@ -35,6 +39,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     check_tensor(a, "a", (torch.float32,), (h,), x.device)
     if d_skip is not None:
         check_tensor(d_skip, "d_skip", (torch.float32,), (h,), x.device)
+    if x.dtype == torch.bfloat16:
+        if n not in _BF16_N or p % 8:
+            raise ValueError(f"the bf16 ssd_scan kernel takes N in {_BF16_N} and P a "
+                             f"multiple of 8, got N={n}, P={p}")
+        check_aligned("ssd_scan", x, b, c)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y

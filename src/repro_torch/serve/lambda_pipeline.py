@@ -55,6 +55,12 @@ class BatchLayer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
+    def set_model(self, params, model_version: int) -> None:
+        """Swap to a new parameter version: later refreshes compute and stamp
+        embeddings under it."""
+        self.params = params
+        self.model_version = int(model_version)
+
     def refresh(self, batches) -> dict:
         """Run stage 1 over all communities, push entity embeddings to the KV
         store.  Returns refresh stats (the paper's 'periodical inference')."""
@@ -90,14 +96,15 @@ class SpeedLayer:
     CUDA) — on the card, one launch of the fused ``stage2_score`` kernel.
 
     ``pack`` holds the weights as the kernel reads them, packed once from
-    ``params`` here (and again if ``params`` is replaced); ``None`` packs
-    them on every call.
+    ``params`` here (and again by :meth:`set_model`, or if ``params`` is
+    replaced); ``None`` packs them on every call.
     """
 
     params: object
     cfg: LNNConfig
     store: KVStore
     k_max: int = 8
+    model_version: int = 0
     device: object = None
     pack: object = field(init=False, default=None, repr=False)
 
@@ -109,6 +116,12 @@ class SpeedLayer:
         gnn, typed = self.cfg.gnn_type, "typed" in self.params
         self.pack = pack_stage2_params(flatten_stage2_params(self.params, gnn), gnn, typed)
         self._packed_params = self.params
+
+    def set_model(self, params, model_version: int) -> None:
+        """Swap to a new parameter version; the next score uses its pack."""
+        self.params = params
+        self.model_version = int(model_version)
+        self._repack()
 
     def score(self, requests: list) -> np.ndarray:
         """requests: :class:`~repro_torch.service.types.ScoreRequest`s (the

@@ -83,6 +83,36 @@ def test_stage2_online_and_embed_match_reference(models):
     np.testing.assert_allclose(lnn_stage2_embed(tparams, cfg, *t).numpy(), want_e, **TOL)
 
 
+@pytest.mark.parametrize("gnn_type", GNN_TYPES)
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_stage2_online_positional_order_h_and_slot_type(gnn_type, use_pallas):
+    """The same positional call ``(params, cfg, emb, mask, feats, order_h,
+    slot_type)`` means the same in both packages: a typed model, with the
+    order's state from ``lnn_order_tower`` in the sixth place.  The
+    reference reads it on its XLA path and recomputes it on its Pallas
+    path; the port always recomputes it."""
+    ref_cfg = R.LNNConfig(gnn_type=gnn_type, num_gnn_layers=2, hidden_dim=16,
+                          mlp_dims=(16,), feat_dim=12, entity_types=ENTITY_TYPE_NAMES,
+                          use_pallas=use_pallas)
+    params = R.lnn_init(jax.random.PRNGKey(4), ref_cfg)
+    rng = np.random.default_rng(5)
+    b, k = 7, 8
+    mask = (rng.uniform(size=(b, k)) < 0.7).astype(np.float32)
+    mask[2] = 0.0
+    emb = rng.normal(size=(b, k, 16)).astype(np.float32) * mask[..., None]
+    feats = rng.normal(size=(b, 12)).astype(np.float32)
+    slot_type = np.where(mask > 0, rng.integers(0, len(ENTITY_TYPE_NAMES), (b, k)),
+                         -1).astype(np.int32)
+    order_h = R.lnn_order_tower(params, ref_cfg, jnp.asarray(feats))
+    want = np.asarray(R.lnn_stage2_online(params, ref_cfg, emb, mask, feats, order_h,
+                                          jnp.asarray(slot_type)))
+    cfg, tparams = _port_cfg(ref_cfg), _to_port(params)
+    got = lnn_stage2_online(tparams, cfg, *(torch.from_numpy(a) for a in (emb, mask, feats)),
+                            torch.from_numpy(np.array(order_h)),
+                            torch.from_numpy(slot_type))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_order_tower_matches_stage1(models, small_communities):
     """Ladder rung: an order's stage-1 state is recomputable from its raw
     features alone (final-hop edges are excluded from stage 1)."""

@@ -136,3 +136,33 @@ def test_speed_layer_pack_built_once_gives_the_same_scores(served):
     fresh = SpeedLayer(speed.params, cfg, store, k_max=16, device="cpu")
     np.testing.assert_array_equal(speed.score(requests), fresh.score(requests))
     assert not np.array_equal(speed.score(requests), per_call.score(requests))
+
+
+def test_set_model_restamps_refresh_and_repacks_scores(served):
+    """``set_model`` as the reference's: a refresh after
+    ``BatchLayer.set_model`` stamps the new version on the store's entries,
+    and ``SpeedLayer.set_model`` repacks, so its scores equal those of a
+    fresh layer built on the new weights."""
+    cfg, params = served["cfg"], served["params"]
+    params_b = {**params, "mlp": [{"w": 2 * lyr["w"], "b": lyr["b"] + 0.5}
+                                  for lyr in params["mlp"]]}
+    store = KVStore(cfg.hidden_dim)
+    batch = BatchLayer(params, cfg, store, device="cpu")
+    batch.refresh(served["batches"][:1])
+    assert {e[4] for shard in store.shard_items() for e in shard} == {0}
+    batch.set_model(params_b, 7)
+    assert batch.params is params_b and batch.model_version == 7
+    batch.refresh(served["batches"][:1])
+    assert {e[4] for shard in store.shard_items() for e in shard} == {7}
+
+    requests = history_requests(served["batches"])[:16]
+    speed = SpeedLayer(params, cfg, store, k_max=16, device="cpu")
+    assert speed.model_version == 0
+    before = speed.score(requests)
+    old_pack = speed.pack
+    speed.set_model(params_b, 7)
+    assert speed.model_version == 7 and speed.params is params_b
+    assert speed.pack is not old_pack
+    fresh = SpeedLayer(params_b, cfg, store, k_max=16, device="cpu")
+    np.testing.assert_array_equal(speed.score(requests), fresh.score(requests))
+    assert not np.array_equal(speed.score(requests), before)

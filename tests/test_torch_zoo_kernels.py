@@ -87,6 +87,48 @@ def test_ssd_chunked_bf16_compute_dtype_matches_reference():
     _close_to_scale(got, want, 2e-2)
 
 
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 512, 4, 64, 64, 128),   # 8 chunks of the kernel's 64: the state carried 7 times
+    (2, 200, 4, 64, 64, 40),    # a ragged last chunk (200 = 3 x 64 + 8)
+    (1, 256, 4, 64, 128, 64),   # N = 128 (mamba2-370m)
+])
+def test_ssd_mma_model_matches_pallas_and_f32_chunked(b, s, h, p, n, chunk):
+    """The plain model of the bf16 kernel's roundings (W, the state's copy
+    for C·S, the state update's operand) against the reference's Pallas
+    kernel in interpret mode and its f32 chunked form, on inputs rounded to
+    bf16.  Each rounding is relative 2^-9, and the output's own rounding to
+    bf16 is at most 2^-8 of the scale: the error expected is below 6e-3 of
+    the output's scale (3.4e-3 to 4.9e-3 on these inputs), held at 2e-2."""
+    x, dt, a, bm, cm, d = _ssd_inputs(b, s, h, p, n)
+    x, bm, cm = (_t(v).to(torch.bfloat16) for v in (x, bm, cm))
+    got = ref.ssd_scan_mma_ref(x, _t(dt), _t(a), bm, cm, _t(d))
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    got = got.float().numpy()
+    jargs = [jnp.asarray(v.float().numpy()) for v in (x,)] + [jnp.asarray(dt), jnp.asarray(a)] \
+        + [jnp.asarray(v.float().numpy()) for v in (bm, cm)] + [jnp.asarray(d)]
+    pallas = np.asarray(ssd_scan_pallas(*jargs, chunk=chunk, interpret=True))
+    chunked = np.asarray(R.ssd_chunked_ref(*jargs, chunk=chunk))
+    for want in (pallas, chunked):
+        _close_to_scale(got, want, 2e-2)
+
+
+def test_ssd_mma_model_rounds_where_the_kernel_rounds():
+    """On f32 inputs that bf16 holds exactly, and with an f32 result, the
+    model differs from the f32 chunked form by more than f32 rounding (its
+    roundings are there) and by less than 6e-3 of the output's scale (they
+    are all it adds)."""
+    x, dt, a, bm, cm, d = _ssd_inputs(1, 192, 2, 16, 64)
+    x, bm, cm = (_t(v).to(torch.bfloat16).float() for v in (x, bm, cm))
+    args = (x, _t(dt), _t(a), bm, cm, _t(d))
+    model = ref.ssd_scan_mma_ref(*args).numpy()
+    chunked = ref.ssd_chunked_ref(*args, chunk=64).numpy()
+    scale = float(np.abs(chunked).max())
+    gap = float(np.abs(model - chunked).max()) / scale
+    assert 1e-5 < gap < 6e-3
+    _close_to_scale(model, np.asarray(R.ssd_chunked_ref(
+        *(jnp.asarray(v.numpy()) for v in args), chunk=64)), 6e-3)
+
+
 # ------------------------------------------------------------ flash_attention
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
 @pytest.mark.parametrize("causal", [True, False])
