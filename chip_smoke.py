@@ -6,7 +6,10 @@
 2. Holds every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times both (CUDA events over CUDA-graph
    replays, median), beside the least time the card could take and the
-   launch floor (a one-element fill timed the same way).  ``stage2_score``
+   launch floor (a one-element fill timed the same way); ``csr_spmm``'s
+   per-edge-type entry also beside the four-pass composition it replaced,
+   and the graph kernels at ragged widths, D=1, D=40 and all-masked rows;
+   then the CUDA kernels one stage-1 call issues (``torch.profiler``).  ``stage2_score``
    is also checked at other depths, heads, batches and widths (the ring of
    weight tiles at H=130 and H=256), with the shared-memory plan of each
    case, and a batch of 128 against the same rows in launches of 16, bit
@@ -18,7 +21,9 @@
    ``split_equivalence_check`` against the monolithic forward; the B=128
    scores must equal the B=16 ones bit for bit.  The kernel launch
    counters are zeroed just before and read just after, and the run fails
-   if a kernel of the path never launched.  Then a breakdown of one
+   if a kernel of the path never launched, or if a community's stage 1
+   launched its aggregation kernel other than once per GNN layer (GCN's
+   four edge types in one ``csr_spmm`` launch).  Then a breakdown of one
    scoring micro-batch (KV lookup, stage-2 call, the card's busy share).
 4. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
    ``gqa_decode``) against their plain versions at the zamba2-1.2b serving
@@ -193,18 +198,63 @@ def stage2_launcher(flat, gnn: str, typed: bool):
     return (lambda emb, mask, feats, st: s2.stage2_score_cuda(emb, mask, feats, pack, st), pack)
 
 
+def stage1_trace(dev, graph, feat_dim: int) -> dict:
+    """What one ``lnn_stage1`` call on a community issues on the card, for
+    gcn, gat and sage at the slice's widths: its CUDA kernels (copies and
+    fills apart), those of them that are the port's graph kernels, their
+    device time (``torch.profiler``), and the host clock of the call."""
+    from repro_torch.core import LNNConfig, lnn_init, lnn_stage1
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows = {}
+    for gnn in ("gcn", "gat", "sage"):
+        cfg = LNNConfig(gnn_type=gnn, num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                        feat_dim=feat_dim)
+        params = lnn_init(torch.Generator().manual_seed(1), cfg, device=dev)
+        with torch.no_grad():
+            lnn_stage1(params, cfg, graph)       # warm-up
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                lnn_stage1(params, cfg, graph)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+        ours = [e for e in kernels if "csr_spmm" in e.name or "edge_softmax" in e.name]
+        row = dict(kernels=len(kernels), copies=len(events) - len(kernels),
+                   graph_kernels=len(ours),
+                   device_us=sum(e.device_time_total for e in kernels),
+                   graph_kernel_us=sum(e.device_time_total for e in ours), host_ms=wall * 1e3)
+        rows[gnn] = row
+        print(f"stage-1 trace {gnn}: one lnn_stage1 call (N={graph.num_nodes} "
+              f"D={graph.max_deg} H=64, {cfg.num_gnn_layers - 1} layers) issues "
+              f"{row['kernels']} CUDA kernels ({row['graph_kernels']} csr_spmm/edge_softmax) "
+              f"and {row['copies']} copies/fills; kernel device time {row['device_us']:.2f} us "
+              f"({row['graph_kernel_us']:.2f} us in csr_spmm/edge_softmax); host "
+              f"{row['host_ms']:.3f} ms (profiled)")
+    return rows
+
+
 def fraud_kernel_checks(dev, batches, feat_dim: int) -> dict:
     """The fraud slice's three kernels against their plain versions on the
-    card: ``csr_spmm`` and ``edge_softmax`` at the stage-1 shapes of the
-    first community, ``stage2_score`` at the config's and the slice's widths
-    over every bucket (timed, with bounds), then at other depths, heads,
-    batches and widths (checked only).  Prints the launch floor beside."""
+    card: ``csr_spmm`` (the single call, and the per-edge-type mean GCN runs
+    in one launch, beside the four-pass composition it replaced) and
+    ``edge_softmax`` at the stage-1 shapes of the first community,
+    ``stage2_score`` at the config's and the slice's widths over every bucket
+    (timed, with bounds), then at other depths, heads, batches and widths
+    (checked only); then what one stage-1 call issues on the card.  Prints
+    the launch floor beside.  In an older tree without the per-edge-type
+    entry, the composition alone is timed, for an A/B in one call."""
     from repro_torch.core import LNNConfig, lnn_init
     from repro_torch.core.hetero import ENTITY_TYPE_NAMES
+    from repro_torch.kernels import csr_spmm as spmm_module
     from repro_torch.kernels import ref
     from repro_torch.kernels.csr_spmm import csr_spmm_cuda
     from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
     from repro_torch.kernels.stage2_score import flatten_stage2_params
+
+    etype_mean_cuda = getattr(spmm_module, "csr_spmm_etype_mean_cuda", None)
 
     results = {}
     failures = []
@@ -250,11 +300,71 @@ def fraud_kernel_checks(dev, batches, feat_dim: int) -> dict:
                  f"(max|d| {case['library_max_abs_err']:.2e})"
                  if case["library_ms"] is not None else ""))
 
+    # csr_spmm's per-edge-type mean: GCN's aggregation of stage 1, E=4 planes
+    # (type 3 masked out there, so its plane is zeros); beside it the
+    # composition that ran it until the kernel took all types in one launch:
+    # per type five elementwise ops and a csr_spmm launch, then a stack
+    n_types = 4
+
+    def type_weights(mask, etype, e):
+        w = mask * (etype == e)
+        return w / w.sum(-1, keepdim=True).clamp_min(1.0)
+
+    def composition(hx, idx, mask, etype, gather):
+        return torch.stack([gather(hx, idx, type_weights(mask, etype, e))
+                            for e in range(n_types)])
+
+    def etype_mean(hx, idx, mask, etype):
+        return etype_mean_cuda(hx, idx, mask, etype, n_types)
+
+    def etype_plain(hx, idx, mask, etype):   # ref.csr_spmm_etype_mean_ref's loop
+        return composition(hx, idx, mask, etype, ref.csr_spmm_ref)
+
+    et = g0.nbr_etype
+    valid = (stage1_mask != 0) & (et >= 0) & (et < n_types)
+    rows_t = et.long() * n + rows_i
+    sparse_t = torch.sparse_coo_tensor(
+        torch.stack([rows_t[valid], g0.nbr_idx.long()[valid]]),
+        torch.stack([type_weights(stage1_mask, et, e) for e in range(n_types)]).sum(0)[valid],
+        (n_types * n, n)).coalesce().to_sparse_csr()
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        hx = h.to(dt)
+        args_t = (hx, g0.nbr_idx, stage1_mask, et)
+        want = etype_plain(*args_t)
+        es = hx.element_size()
+        b_ms, b_by = bound(3 * n * deg * 4 + n * hdim * es + n_types * n * hdim * es,
+                           2 * int(valid.sum()) * hdim)
+        case = dict(shape=f"N={n} D={deg} H={hdim} E={n_types} {name}",
+                    composition_max_abs_err=compare(
+                        composition(*args_t, csr_spmm_cuda), want, name),
+                    composition_ms=time_ms(lambda: composition(*args_t, csr_spmm_cuda)),
+                    max_abs_err=None, ms=None, plain_ms=time_ms(lambda: etype_plain(*args_t)),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if etype_mean_cuda is not None:
+            case["max_abs_err"] = compare(etype_mean(*args_t), want, name)
+            case["ms"] = time_ms(lambda: etype_mean(*args_t))
+        if dt == torch.float32:
+            case["library_max_abs_err"] = float(
+                (torch.sparse.mm(sparse_t, h).view(n_types, n, hdim) - want).abs().max())
+            case["library_ms"] = time_ms(lambda: torch.sparse.mm(sparse_t, h))
+        results.setdefault("csr_spmm_etype_mean", []).append(case)
+        print(f"csr_spmm per-edge-type mean {case['shape']}: "
+              + (f"one launch max|d|={case['max_abs_err']:.2e} kernel {case['ms'] * 1e3:8.2f} us"
+                 if case["ms"] is not None else "one launch: not in this tree")
+              + f"  four-pass composition (4 x csr_spmm + 20 elementwise + stack) max|d|="
+              f"{case['composition_max_abs_err']:.2e} {case['composition_ms'] * 1e3:8.2f} us"
+              f"  plain {case['plain_ms'] * 1e3:8.2f} us  bound {b_ms * 1e3:6.3f} us ({b_by})"
+              + (f"  torch.sparse.mm {case['library_ms'] * 1e3:8.2f} us "
+                 f"(max|d| {case['library_max_abs_err']:.2e})"
+                 if case["library_ms"] is not None else ""))
+
     # edge_softmax: the GAT layer of stage 1 (orders and padding rows are
     # all-masked there)
     z, s_src, s_dst = randn(n, hdim), randn(n), randn(n)
     bias = (randn(n, deg) * 0.1).contiguous()
     all_masked = int((stage1_mask.sum(-1) == 0).sum())
+    most_valid = int((stage1_mask != 0).sum(-1).max())
     if all_masked == 0:
         raise AssertionError("edge_softmax check needs all-masked rows")
     args = (z, s_src, s_dst, g0.nbr_idx, stage1_mask, bias)
@@ -262,7 +372,8 @@ def fraud_kernel_checks(dev, batches, feat_dim: int) -> dict:
     n_edges = int((stage1_mask > 0).sum())
     b_ms, b_by = bound(2 * n * hdim * 4 + 2 * n * 4 + 3 * n * deg * 4,
                        n_edges * (2 * hdim + 8))
-    case = dict(shape=f"N={n} D={deg} H={hdim} f32 ({all_masked} rows all-masked)",
+    case = dict(shape=f"N={n} D={deg} H={hdim} f32 ({all_masked} rows all-masked, "
+                      f"at most {most_valid} valid slots a row)",
                 max_abs_err=err, ms=time_ms(lambda: edge_softmax_agg_cuda(*args)),
                 plain_ms=time_ms(lambda: ref.edge_softmax_agg_ref(*args)),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -378,26 +489,41 @@ def fraud_kernel_checks(dev, batches, feat_dim: int) -> dict:
             report(stage2_case(g, ty, 37, 48, k=5, h=130, timed=False))
         report(stage2_case(g, True, 9, 48, h=256, timed=False))
 
-    # ragged sizes, checked but not timed: the reference tests' N=257 and
-    # H=130, D=40 for the edge softmax's loop over chunks of 32 slots
+    # ragged sizes, checked but not timed, each with every 7th row
+    # all-masked and random edge types in [0, 4): the reference tests' N=257
+    # and H=130 (two column blocks), D=40 and D=33 for the loops over chunks
+    # of 32 slots, D=1; H=64 (a float2 a lane, bf16 pairs), H=256 (16-byte
+    # loads), H=96 (a lane's second column group past the row), H=12 (scalar
+    # loads, lanes idle); and h starting one element past a 16-byte boundary
     rgen = torch.Generator().manual_seed(1)
-    for n_r, d_r, h_r in ((257, 7, 130), (257, 40, 130)):
+    for n_r, d_r, h_r, offset in ((257, 7, 130, 0), (257, 40, 130, 0), (257, 1, 64, 0),
+                                  (257, 40, 64, 0), (300, 24, 256, 0), (100, 33, 96, 0),
+                                  (64, 5, 12, 0), (257, 24, 64, 1)):
         idx_r = torch.randint(0, n_r, (n_r, d_r), generator=rgen, dtype=torch.int32).to(dev)
+        et_r = torch.randint(0, 4, (n_r, d_r), generator=rgen, dtype=torch.int32).to(dev)
         mask_r = (torch.rand(n_r, d_r, generator=rgen) < 0.6).float()
         mask_r[::7] = 0.0
         mask_r = mask_r.to(dev)
-        x_r = randn(n_r, h_r)
+        x_r = randn(n_r * h_r + offset)[offset:].view(n_r, h_r)
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[-1]
-            errs[f"csr_spmm {name}"] = compare(
-                csr_spmm_cuda(x_r.to(dt), idx_r, mask_r),
-                ref.csr_spmm_ref(x_r.to(dt), idx_r, mask_r), name)
+            xd = x_r.to(dt) if not offset else \
+                torch.empty(n_r * h_r + offset, dtype=dt, device=dev)[offset:].view(n_r, h_r)
+            if offset:
+                xd.copy_(x_r)
+            errs[f"csr_spmm {name}"] = compare(csr_spmm_cuda(xd, idx_r, mask_r),
+                                               ref.csr_spmm_ref(xd, idx_r, mask_r), name)
+            if etype_mean_cuda is not None:
+                errs[f"per-type {name}"] = compare(etype_mean(xd, idx_r, mask_r, et_r),
+                                                   etype_plain(xd, idx_r, mask_r, et_r), name)
         args_r = (x_r, randn(n_r), randn(n_r), idx_r, mask_r, (randn(n_r, d_r) * 0.1))
         errs["edge_softmax"] = compare(edge_softmax_agg_cuda(*args_r),
                                        ref.edge_softmax_agg_ref(*args_r), "float32")
-        print(f"ragged N={n_r} D={d_r} H={h_r}: "
+        print(f"ragged N={n_r} D={d_r} H={h_r}{' h offset 1' if offset else ''} "
+              f"({int((mask_r.sum(-1) == 0).sum())} rows all-masked): "
               + ", ".join(f"{k} max|d|={v:.2e}" for k, v in errs.items()))
+    results["stage1_trace"] = stage1_trace(dev, g0, feat_dim)
     torch.cuda.synchronize()
     if failures:
         raise AssertionError("\n".join(failures))
@@ -835,6 +961,12 @@ def main() -> int:
 
         _build.reset_launches()
         refresh = batch_layer.refresh(batches)
+        # stage 1 per community: one aggregation launch per GNN layer before
+        # the last (GCN's four edge types in one csr_spmm launch)
+        per_refresh = _build.LAUNCHES[expected[gnn][0]] / len(batches)
+        if per_refresh != cfg.num_gnn_layers - 1:
+            raise AssertionError(f"{gnn}: {expected[gnn][0]} launched {per_refresh} times per "
+                                 f"community refresh, expected {cfg.num_gnn_layers - 1}")
         lat, probs = [], []
         for i in range(0, len(requests), MICRO_BATCH):
             t1 = time.perf_counter()
@@ -884,7 +1016,8 @@ def main() -> int:
                    score_batches=len(lat), score_p50_ms=float(np.percentile(lat, 50)),
                    score_p99_ms=float(np.percentile(lat, 99)), score_b128_ms=lat128,
                    equivalence_gap=gap, batch_size_gap=batch_gap,
-                   host_plain_gap=cpu_gap, stage1_host_gap=h_gap, launches=counts)
+                   host_plain_gap=cpu_gap, stage1_host_gap=h_gap, launches=counts,
+                   launches_per_community_refresh={expected[gnn][0]: per_refresh})
         row.update(score_breakdown(speed_layer, requests[:100 * MICRO_BATCH]))
         slice_rows.append(row)
         print(f"slice {gnn}: refresh {refresh['seconds']:.3f} s "
@@ -893,7 +1026,9 @@ def main() -> int:
               f"over {len(lat)} batches (of which KV lookup {row['lookup_ms']:.3f} ms, "
               f"stage-2 call {row['stage2_call_ms']:.3f} ms; device busy "
               f"{row['device_busy_share']:.1%}), B=128 {lat128:.3f} ms, "
-              f"equivalence gap {gap:.3e}, host gap {cpu_gap:.2e}, launches {counts}")
+              f"equivalence gap {gap:.3e}, host gap {cpu_gap:.2e}, stage-1 host gap "
+              f"{h_gap:.2e}, launches {counts} ({expected[gnn][0]} {per_refresh:g} per "
+              "community refresh)")
     print("slice: " + json.dumps(slice_rows))
 
     # ------------------------------------------------- 5, 6. the zoo slice
@@ -948,6 +1083,13 @@ def main() -> int:
             bound_by=case["bound_by"], library_ms=case["library_ms"],
             shape=case["shape"], cases=len(results[name]),
             **{k: case[k] for k in ("err_of_scale", "tol_of_scale") if k in case}))
+    # csr_spmm's second entry, the per-edge-type mean (its launches count
+    # under csr_spmm), and the composition it replaced
+    etype = next(c for c in results["csr_spmm_etype_mean"] if c["shape"].endswith("float32"))
+    kernels[0]["etype_mean"] = {k: etype[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "composition_ms")}
+    kernels[0]["cases"] += len(results["csr_spmm_etype_mean"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

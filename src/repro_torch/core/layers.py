@@ -38,13 +38,10 @@ def weighted_gather_sum(h, nbr_idx, weights):
 def per_etype_mean(h, graph: PaddedGraph):
     """Mean-aggregate neighbor states separately per edge type.
 
-    Returns [NUM_ETYPES, N, H]."""
-    outs = []
-    for e in range(EdgeType.NUM):
-        w = graph.nbr_mask * (graph.nbr_etype == e)
-        cnt = w.sum(-1, keepdim=True).clamp_min(1.0)
-        outs.append(weighted_gather_sum(h, graph.nbr_idx, w / cnt))
-    return torch.stack(outs)
+    Returns [NUM_ETYPES, N, H], every type in one ``csr_spmm`` launch on
+    the card."""
+    return ops.csr_spmm_etype_mean(h, graph.nbr_idx, graph.nbr_mask, graph.nbr_etype,
+                                   EdgeType.NUM)
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
+    for name in ("csr_spmm_etype_mean_f32", "csr_spmm_etype_mean_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
     lib.edge_softmax_agg_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.edge_softmax_agg_f32.restype = i
     lib.stage2_score_f32.argtypes = [p, p]

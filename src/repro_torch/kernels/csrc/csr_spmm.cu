@@ -1,74 +1,207 @@
-// Weighted neighbour gather-sum, the GCN/SAGE aggregation of stage 1:
+// Weighted neighbour gather-sum, the GCN/SAGE aggregation of stage 1, and
+// its per-edge-type mean (GCN) in one launch:
 //
-//     out[i, :] = sum_d w[i, d] * h[idx[i, d], :]
+//     csr_spmm:             out[i, :]    = sum_d w[i, d] * h[idx[i, d], :]
+//     csr_spmm_etype_mean:  cnt[i, e]    = max(sum_d mask[i, d] * [etype[i, d] == e], 1)
+//                           out[e, i, :] = sum_d (mask[i, d] * [etype[i, d] == e] / cnt[i, e])
+//                                                * h[idx[i, d], :]          for e < E
 //
 // Replaces the TPU kernel src/repro/kernels/csr_spmm.py::csr_spmm_pallas
-// (body _spmm_kernel).  Same padded in-neighbour layout: padded slots point
-// at row 0 with weight 0, so no per-slot mask is read.
+// (body _spmm_kernel); the second entry is the reference's
+// core/layers.py::per_etype_mean, E calls of that kernel, in one launch.
 //
-// Bound on the H100: memory.  At the main path's shape (N=1064, D=24, H=64,
-// f32) the function moves ~0.75 MB and does ~3.3 MFLOP, a bound well under a
-// microsecond, so one launch is bound by its launch and its dependent chain
-// of D gathers, not by HBM.  Design: a block holds a tile of node rows
-// (threadIdx.y) and its threads run across H (threadIdx.x), so each gathered
-// row of h is one coalesced read; a community's h (~270 KB) stays in L2
-// across the D steps.  Accumulation is in f32 whatever h's type.  An index
-// outside [0, N) is clamped, so a bad index never reads outside h.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Bound on the H100: memory, and at the main path's shape (N=1064, D=24,
+// H=64, f32) the launch and its chain of dependent loads: the function moves
+// ~0.75 MB (the per-type mean ~1.67 MB), a bound under a microsecond.  Only
+// ~6% of the slots are valid and a row's gathers depend on its slot loads,
+// so the design (nbr_slots.cuh) reads each row's slots once, a lane per
+// slot, ballots the slots of non-zero weight, and gathers only those rows of
+// h, several in flight; a row with no such slot writes zeros and gathers
+// nothing.  Skipping a zero-weight slot gives the same sum as the
+// reference's 0 * h[idx] for finite h.  Accumulation is in f32, in slot
+// order, whatever h's type.  An index outside [0, N) is clamped, so a bad
+// index never reads outside h.
+//
+// The per-type mean sums each type's mask as a float (the reference's
+// w.sum(-1), not a count of slots), divides each slot's mask by its own
+// type's sum, and gathers each valid slot once, for its own type; a slot
+// whose type lies outside [0, E) belongs to no output.  Types with no
+// slot in a row write zeros.
+#include "nbr_slots.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using namespace nbr;
 
-template <typename T>
-__global__ void csr_spmm_kernel(const T* __restrict__ h,
-                                const int* __restrict__ idx,
-                                const float* __restrict__ w,
-                                T* __restrict__ out, int n, int d, int hdim) {
-  const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  if (row >= n) return;
+constexpr int kMaxTypes = 4;   // EdgeType.NUM: the graph's edge-type vocabulary
+
+template <typename T, int VEC, int NP>
+__global__ void __launch_bounds__(kWarps * 32)
+    csr_spmm_kernel(const T* __restrict__ h, const int* __restrict__ idx,
+                    const float* __restrict__ w, T* __restrict__ out, int n, int d, int hdim) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // uniform across the warp
   const int* ri = idx + (size_t)row * d;
   const float* rw = w + (size_t)row * d;
-  for (int c = threadIdx.x; c < hdim; c += blockDim.x) {
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const int src = min(max(ri[k], 0), n - 1);
-      acc = fmaf(load_f32(h + (size_t)src * hdim + c), rw[k], acc);
+  // the first 32 slots, read once; a row of D > 32 reads further chunks in
+  // the loop, and a row wider than one column block reads them again (L1)
+  const int src0 = lane < d ? clamp_row(ri[lane], n) : 0;
+  const float w0 = lane < d ? rw[lane] : 0.f;
+  const unsigned bits0 = __ballot_sync(kFull, w0 != 0.f);
+  for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
+    const int first = col0 + lane * VEC;
+    float acc[NP][VEC] = {};
+    auto add = [&](int, float wj, const float(&x)[NP][VEC]) { fma_cols(acc, wj, x); };
+    gather_slots<T, VEC, NP>(h, hdim, first, bits0, src0, w0, 0, add);
+    for (int k0 = 32; k0 < d; k0 += 32) {
+      const int k = k0 + lane;
+      const int src = k < d ? clamp_row(ri[k], n) : 0;
+      const float wk = k < d ? rw[k] : 0.f;
+      gather_slots<T, VEC, NP>(h, hdim, first, __ballot_sync(kFull, wk != 0.f), src, wk, 0,
+                               add);
     }
-    store_f32(out + (size_t)row * hdim + c, acc);
+    store_cols<T, VEC, NP>(out + (size_t)row * hdim, first, hdim, acc);
   }
 }
 
+// One lane's slot of the per-type mean: its source row, mask and type (-1
+// for a type outside [0, ntypes) and for lanes past D).
+struct TypedSlot {
+  int src, type;
+  float mask;
+};
+
+__device__ __forceinline__ TypedSlot typed_slot(const int* ri, const float* rm, const int* re,
+                                                int k, int d, int n, int ntypes) {
+  TypedSlot s{0, -1, 0.f};
+  if (k < d) {
+    s.src = clamp_row(ri[k], n);
+    s.mask = rm[k];
+    const int t = re[k];
+    s.type = (t >= 0 && t < ntypes) ? t : -1;
+  }
+  return s;
+}
+
+// A slot that adds to some type's mean: a type in [0, ntypes) and a
+// non-zero mask (its weight mask / cnt can only be 0 where the mask is, or
+// by underflow, which adds 0 * h as the reference does).
+__device__ __forceinline__ bool is_valid(const TypedSlot& s) {
+  return s.type >= 0 && s.mask != 0.f;
+}
+
+template <typename T, int VEC, int NP>
+__global__ void __launch_bounds__(kWarps * 32)
+    csr_spmm_etype_mean_kernel(const T* __restrict__ h, const int* __restrict__ idx,
+                               const float* __restrict__ mask, const int* __restrict__ etype,
+                               T* __restrict__ out, int n, int d, int hdim, int ntypes) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // uniform across the warp
+  const size_t base = (size_t)row * d;
+  const int* ri = idx + base;
+  const float* rm = mask + base;
+  const int* re = etype + base;
+
+  // each type's float sum of the mask over all D slots (types no slot of
+  // the row carries keep 0, clamped to 1 like the others)
+  const TypedSlot s0 = typed_slot(ri, rm, re, lane, d, n, ntypes);
+  float cnt[kMaxTypes] = {};
+  for (int k0 = 0; k0 < d; k0 += 32) {
+    const TypedSlot s = k0 == 0 ? s0 : typed_slot(ri, rm, re, k0 + lane, d, n, ntypes);
+#pragma unroll
+    for (int e = 0; e < kMaxTypes; ++e)
+      if (__ballot_sync(kFull, s.type == e && s.mask != 0.f))
+        cnt[e] += warp_sum(s.type == e ? s.mask : 0.f);
+  }
+#pragma unroll
+  for (int e = 0; e < kMaxTypes; ++e) cnt[e] = fmaxf(cnt[e], 1.f);
+
+  // a slot's weight: its mask over its own type's sum (the reference's w / cnt)
+  auto weight = [&](const TypedSlot& s) {
+    float c = 1.f;
+#pragma unroll
+    for (int e = 0; e < kMaxTypes; ++e)
+      if (s.type == e) c = cnt[e];
+    return s.type >= 0 ? s.mask / c : 0.f;
+  };
+  const float w0 = weight(s0);
+  const unsigned valid0 = __ballot_sync(kFull, is_valid(s0));
+  for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
+    const int first = col0 + lane * VEC;
+    float acc[kMaxTypes][NP][VEC] = {};
+    auto add = [&](int type, float wj, const float(&x)[NP][VEC]) {
+#pragma unroll
+      for (int e = 0; e < kMaxTypes; ++e)
+        if (type == e) fma_cols(acc[e], wj, x);
+    };
+    gather_slots<T, VEC, NP>(h, hdim, first, valid0, s0.src, w0, s0.type, add);
+    for (int k0 = 32; k0 < d; k0 += 32) {
+      const TypedSlot s = typed_slot(ri, rm, re, k0 + lane, d, n, ntypes);
+      gather_slots<T, VEC, NP>(h, hdim, first, __ballot_sync(kFull, is_valid(s)), s.src,
+                               weight(s), s.type, add);
+    }
+#pragma unroll
+    for (int e = 0; e < kMaxTypes; ++e)
+      if (e < ntypes)
+        store_cols<T, VEC, NP>(out + ((size_t)e * n + row) * hdim, first, hdim, acc[e]);
+  }
+}
+
+int grid_rows(int n) { return (n + kWarps - 1) / kWarps; }
+
 template <typename T>
-int launch(const void* h, const void* idx, const void* w, void* out, int n,
-           int d, int hdim, void* stream) {
+int launch(const void* h, const void* idx, const void* w, void* out, int n, int d, int hdim,
+           void* stream) {
   if (n <= 0 || d < 0 || hdim <= 0) return (int)cudaErrorInvalidValue;
-  // threads across H: one warp for narrow rows, up to four for wide ones;
-  // the rest of the 256 threads take further node rows
-  const int bx = hdim > 64 ? 128 : (hdim > 32 ? 64 : 32);
-  const dim3 block(bx, 256 / bx);
-  const dim3 grid((n + block.y - 1) / block.y);
-  csr_spmm_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)h, (const int*)idx, (const float*)w, (T*)out, n, d, hdim);
-  return (int)cudaGetLastError();
+  int vec, np;
+  pick_cols(hdim, (int)sizeof(T), h, out, &vec, &np);
+  return dispatch_cols<T>(vec, np, [&](auto v, auto p) {
+    csr_spmm_kernel<T, decltype(v)::value, decltype(p)::value>
+        <<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
+            (const T*)h, (const int*)idx, (const float*)w, (T*)out, n, d, hdim);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int launch_etype_mean(const void* h, const void* idx, const void* mask, const void* etype,
+                      void* out, int n, int d, int hdim, int ntypes, void* stream) {
+  if (n <= 0 || d < 0 || hdim <= 0 || ntypes < 1 || ntypes > kMaxTypes)
+    return (int)cudaErrorInvalidValue;
+  int vec, np;
+  pick_cols(hdim, (int)sizeof(T), h, out, &vec, &np);
+  return dispatch_cols<T>(vec, np, [&](auto v, auto p) {
+    csr_spmm_etype_mean_kernel<T, decltype(v)::value, decltype(p)::value>
+        <<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
+            (const T*)h, (const int*)idx, (const float*)mask, (const int*)etype, (T*)out, n, d,
+            hdim, ntypes);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-extern "C" int csr_spmm_f32(const void* h, const void* idx, const void* w,
-                            void* out, int n, int d, int hdim, void* stream) {
+extern "C" int csr_spmm_f32(const void* h, const void* idx, const void* w, void* out, int n,
+                            int d, int hdim, void* stream) {
   return launch<float>(h, idx, w, out, n, d, hdim, stream);
 }
 
-extern "C" int csr_spmm_bf16(const void* h, const void* idx, const void* w,
-                             void* out, int n, int d, int hdim, void* stream) {
+extern "C" int csr_spmm_bf16(const void* h, const void* idx, const void* w, void* out, int n,
+                             int d, int hdim, void* stream) {
   return launch<__nv_bfloat16>(h, idx, w, out, n, d, hdim, stream);
+}
+
+extern "C" int csr_spmm_etype_mean_f32(const void* h, const void* idx, const void* mask,
+                                       const void* etype, void* out, int n, int d, int hdim,
+                                       int ntypes, void* stream) {
+  return launch_etype_mean<float>(h, idx, mask, etype, out, n, d, hdim, ntypes, stream);
+}
+
+extern "C" int csr_spmm_etype_mean_bf16(const void* h, const void* idx, const void* mask,
+                                        const void* etype, void* out, int n, int d, int hdim,
+                                        int ntypes, void* stream) {
+  return launch_etype_mean<__nv_bfloat16>(h, idx, mask, etype, out, n, d, hdim, ntypes,
+                                          stream);
 }

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.csr_spmm import csr_spmm_cuda
+from repro_torch.kernels.csr_spmm import csr_spmm_cuda, csr_spmm_etype_mean_cuda
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
@@ -34,6 +34,15 @@ def csr_spmm(h, nbr_idx, weights):
     if _on_cuda(h):
         return csr_spmm_cuda(h, nbr_idx, weights)
     return ref.csr_spmm_ref(h, nbr_idx, weights)
+
+
+def csr_spmm_etype_mean(h, nbr_idx, nbr_mask, nbr_etype, num_types: int):
+    """out[e, i] = the mean of h over i's neighbours of edge type e (masked
+    by ``nbr_mask``, divided by the mask's sum for that type, at least 1):
+    [num_types, N, H], one launch on the card."""
+    if _on_cuda(h):
+        return csr_spmm_etype_mean_cuda(h, nbr_idx, nbr_mask, nbr_etype, num_types)
+    return ref.csr_spmm_etype_mean_ref(h, nbr_idx, nbr_mask, nbr_etype, num_types)
 
 
 def edge_softmax_agg(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias):

@@ -24,6 +24,18 @@ def csr_spmm_ref(h, nbr_idx, weights):
     return out.to(h.dtype)
 
 
+def csr_spmm_etype_mean_ref(h, nbr_idx, nbr_mask, nbr_etype, num_types: int):
+    """Mean-aggregate neighbour states separately per edge type, [E, N, H]:
+    for each type e < ``num_types``, :func:`csr_spmm_ref` with the weights
+    ``mask * (etype == e)`` over their float sum (at least 1)."""
+    outs = []
+    for e in range(num_types):
+        w = nbr_mask * (nbr_etype == e)
+        cnt = w.sum(-1, keepdim=True).clamp_min(1.0)
+        outs.append(csr_spmm_ref(h, nbr_idx, w / cnt))
+    return torch.stack(outs)
+
+
 def edge_softmax_agg_ref(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias):
     """GAT-style masked neighbour softmax + weighted aggregation.
 

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import LNNConfig, lnn_init
 from repro_torch.core.graph import COOGraph, pad_graph
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.csr_spmm import csr_spmm_cuda
+from repro_torch.kernels.csr_spmm import csr_spmm_cuda, csr_spmm_etype_mean_cuda
 from repro_torch.configs import get_config
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -111,6 +111,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         csr_spmm_cuda(h, idx, w)
     with pytest.raises(ValueError, match="CUDA"):
+        csr_spmm_etype_mean_cuda(h, idx, w, idx, 4)
+    with pytest.raises(ValueError, match="CUDA"):
         edge_softmax_agg_cuda(h, h[:, 0].contiguous(), h[:, 0].contiguous(), idx, w, w)
     with pytest.raises(ValueError, match="CUDA"):
         stage2_score_cuda(torch.zeros(2, 3, 4), torch.zeros(2, 3), torch.zeros(2, 5), ())
@@ -147,6 +149,10 @@ def test_dispatch_raises_for_other_devices():
     with pytest.raises(ValueError, match="no kernel path"):
         ops.csr_spmm(h, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
                      torch.zeros(4, 2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel path"):
+        ops.csr_spmm_etype_mean(h, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
+                                torch.zeros(4, 2, device="meta"),
+                                torch.zeros(4, 2, dtype=torch.int32, device="meta"), 4)
 
 
 def test_dispatch_takes_plain_version_for_cpu_tensors():
