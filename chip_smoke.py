@@ -37,13 +37,24 @@
 6. In f32 at full width, the kernel path's logits (forward, prefill and 4
    decode steps) against the port's plain path on the host, and prefill ->
    decode consistency on the card and on the host.
-7. Prints one JSON line with every kernel's numbers, then the result line.
+7. Training (``repro_torch.train``): the two backward kernels
+   (``csr_spmm_bwd``, ``edge_softmax_bwd``) against their plain versions at
+   the first community's stage-1 shapes (timed, with bounds, the launch
+   floor and ``torch.sparse.mm``) and at ragged ones, each called twice for
+   the same bits; one train step on the card against the same step on the
+   host's plain path (f32, and f64 as the anchor), for gcn, gat and sage at
+   ``lnn_fraud``'s width; then Table 3's pipeline (GBDT, MLP on the card,
+   LNN for gcn, gat and sage through ``train_lnn``, 3 epochs each) with the
+   launch counters zeroed just before the training runs and read just
+   after, ms per synchronized step, the card's busy share over one step and
+   test ROC-AUC/AP beside the baselines'.
+8. Prints one JSON line with every kernel's numbers, then the result line.
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
-(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 4 only, and
-``--fraud-kernels`` steps 1 and 2's fraud kernels: a quick build, check and
-timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
+(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 4 only,
+``--fraud-kernels`` steps 1 and 2's fraud kernels, and ``--train`` steps 1
+and 7: a quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
 import json
@@ -75,6 +86,13 @@ SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # of the output's scale
 SSD_MMA_TOL = 1e-2
 ZOO_TOL = 5e-4               # whole-model logits, of their scale
 COLD_SETS = 6                # inputs rotated to time gqa_decode and ssd_scan cold in L2
+# backward kernels against their plain versions (f32, sums over the reverse
+# index in another order than the plain version's index_add_)
+GRAD_TOL = dict(atol=2e-5, rtol=2e-5)
+STEP_LOSS_RTOL = 1e-5        # one train step, card against the host's plain path
+STEP_GRAD_TOL = 2e-5         # ... each gradient leaf, of its scale
+TRAIN_EPOCHS = 3             # per GNN type in the Table 3 phase
+TIMED_STEPS = 20             # synchronized train steps timed per GNN type
 
 
 def time_ms(*fns) -> float:
@@ -530,6 +548,337 @@ def fraud_kernel_checks(dev, batches, feat_dim: int) -> dict:
     return results
 
 
+def grad_kernel_checks(dev, graph) -> dict:
+    """The two backward kernels against their plain versions on the card:
+    at the stage-1 shapes of the first community (``graph``, on the card with
+    its reverse-slot index), timed beside the plain version, the bound, the
+    launch floor and, for ``csr_spmm``'s, ``torch.sparse.mm`` with the
+    transposed matrix; then at ragged shapes (D=1, 24, 33, 40; H=12, 96,
+    130; all-masked rows, a source row of in-degree > 64 and, for
+    ``edge_softmax``, logits of exactly 0), checked only.  Each case runs
+    the kernel twice and fails unless the two give the same bits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.csr_spmm import csr_spmm_bwd_cuda, csr_spmm_etype_mean_bwd_cuda
+    from repro_torch.kernels.edge_softmax import edge_softmax_agg_bwd_cuda
+
+    gen = torch.Generator().manual_seed(4)
+    results: dict = {}
+    failures: list = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: tiny.zero_())
+
+    def check(name, shape, kernel, plain, timing=None):
+        """``kernel()`` and ``plain()`` give tuples of tensors; ``timing`` is
+        (bytes, operations, library call or None) for a timed case."""
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            try:
+                torch.testing.assert_close(g, w, **GRAD_TOL)
+            except AssertionError as e:
+                failures.append(f"{name} {shape}: {e}")
+            err = max(err, float((g - w).abs().max()))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            failures.append(f"{name} {shape}: two calls gave other bits")
+        case = dict(shape=shape, max_abs_err=err, same_bits=same, ms=None, plain_ms=None,
+                    bound_ms=None, bound_by=None, library_ms=None, launch_floor_ms=floor_ms)
+        line = f"{name:<16} {shape:<48} max|d|={err:.2e} {'same' if same else 'OTHER'} bits"
+        if timing is not None:
+            nbytes, flops, library = timing
+            case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
+            case["ms"] = time_ms(lambda: kernel())
+            case["plain_ms"] = time_ms(lambda: plain())
+            line += (f"  kernel {case['ms'] * 1e3:8.2f} us  plain {case['plain_ms'] * 1e3:8.2f} us"
+                     f"  bound {case['bound_ms'] * 1e3:6.3f} us ({case['bound_by']})"
+                     f"  floor {floor_ms * 1e3:5.2f} us")
+            if library is not None:
+                case["library_max_abs_err"] = float((library() - want[0]).abs().max())
+                case["library_ms"] = time_ms(library)
+                line += (f"  torch.sparse.mm {case['library_ms'] * 1e3:8.2f} us "
+                         f"(max|d| {case['library_max_abs_err']:.2e})")
+        results.setdefault(name, []).append(case)
+        print(line)
+
+    def transposed(idx, weights, planes=None):
+        """The sparse matrix of the backward, dh = A^T dout, in CSR: row
+        idx[i, d], column i (or planes[i, d] * N + i, for a dout of 4
+        planes), value weights[i, d]."""
+        n, d = idx.shape
+        rows_i = torch.arange(n, device=dev)[:, None].expand(n, d)
+        cols = rows_i if planes is None else planes * n + rows_i
+        keep = weights != 0
+        width = n if planes is None else 4 * n
+        return torch.sparse_coo_tensor(torch.stack([idx.long()[keep], cols[keep]]),
+                                       weights[keep], (n, width)).coalesce().to_sparse_csr()
+
+    # the first community's stage-1 shapes (orders and padding all-masked)
+    n, deg, hdim = graph.num_nodes, graph.max_deg, 64
+    rev = graph.rev
+    mask = (graph.nbr_mask * (graph.nbr_etype != 3)).contiguous()
+    w_mean = (mask / mask.sum(-1, keepdim=True).clamp_min(1.0)).contiguous()
+    nnz = int((mask != 0).sum())
+    idx, et = graph.nbr_idx, graph.nbr_etype
+    dout, dout_e = randn(n, hdim), randn(4, n, hdim)
+    shape = f"N={n} D={deg} H={hdim} f32 ({nnz} valid slots)"
+    a_t = transposed(idx, w_mean)
+    check("csr_spmm_bwd", shape,
+          lambda: (csr_spmm_bwd_cuda(dout, w_mean, *rev),),
+          lambda: (ref.csr_spmm_bwd_ref(dout, w_mean, *rev),),
+          (2 * n * hdim * 4 + n * deg * 4 + tensor_bytes(*rev), 2 * nnz * hdim,
+           lambda: torch.sparse.mm(a_t, dout)))
+    a_te = transposed(idx, ref.etype_mean_weights_ref(mask, et, 4), et.long())
+    check("csr_spmm_bwd", shape.replace("f32", "E=4 f32 per-type"),
+          lambda: (csr_spmm_etype_mean_bwd_cuda(dout_e, idx, mask, et, *rev),),
+          lambda: (ref.csr_spmm_etype_mean_bwd_ref(dout_e, mask, et, *rev),),
+          (5 * n * hdim * 4 + 2 * n * deg * 4 + tensor_bytes(*rev), 2 * nnz * hdim,
+           lambda: torch.sparse.mm(a_te, dout_e.view(4 * n, hdim))))
+    z, s_src, s_dst, bias = randn(n, hdim), randn(n), randn(n), (randn(n, deg) * 0.1)
+    args = (z, s_src, s_dst, idx, mask, bias)
+    check("edge_softmax_bwd", shape,
+          lambda: edge_softmax_agg_bwd_cuda(dout, *args, *rev),
+          lambda: ref.edge_softmax_agg_bwd_ref(dout, *args, *rev),
+          (3 * n * hdim * 4 + 4 * n * 4 + 4 * n * deg * 4 + tensor_bytes(*rev),
+           nnz * (4 * hdim + 16), None))
+
+    # ragged: every 7th row all-masked, slot 0 of every other row pointing at
+    # row 3 (in-degree > 64), random edge types; for edge_softmax, slot 0 of
+    # every third row with a pre-activation of exactly 0
+    rgen = torch.Generator().manual_seed(5)
+    for n_r, d_r, h_r in ((160, 1, 64), (160, 24, 64), (160, 33, 64), (257, 40, 12),
+                          (257, 24, 96), (257, 33, 130)):
+        idx_r = torch.randint(0, n_r, (n_r, d_r), generator=rgen, dtype=torch.int32)
+        mask_r = (torch.rand(n_r, d_r, generator=rgen) < 0.6).float()
+        mask_r[:, 0], idx_r[:, 0] = 1.0, 3
+        mask_r[::7] = 0.0
+        et_r = torch.randint(0, 4, (n_r, d_r), generator=rgen, dtype=torch.int32)
+        idx_r, mask_r, et_r = idx_r.to(dev), mask_r.to(dev), et_r.to(dev)
+        rev_r = ref.reverse_slots_ref(idx_r, mask_r)
+        w_r = (mask_r * torch.rand(n_r, d_r, generator=rgen).to(dev)).contiguous()
+        do, do_e = randn(n_r, h_r), randn(4, n_r, h_r)
+        z_r, ss_r, sd_r, b_r = randn(n_r, h_r), randn(n_r), randn(n_r), randn(n_r, d_r) * 0.1
+        rows = torch.arange(1, n_r, 3, device=dev)
+        b_r[rows, 0] = 0.0
+        sd_r[rows] = -ss_r[idx_r[rows, 0].long()]
+        args_r = (z_r, ss_r, sd_r, idx_r, mask_r, b_r.contiguous())
+        shape_r = (f"ragged N={n_r} D={d_r} H={h_r} (in-degree of row 3: "
+                   f"{int(rev_r[0][4] - rev_r[0][3])})")
+        check("csr_spmm_bwd", shape_r, lambda: (csr_spmm_bwd_cuda(do, w_r, *rev_r),),
+              lambda: (ref.csr_spmm_bwd_ref(do, w_r, *rev_r),))
+        check("csr_spmm_bwd", shape_r + " per-type",
+              lambda: (csr_spmm_etype_mean_bwd_cuda(do_e, idx_r, mask_r, et_r, *rev_r),),
+              lambda: (ref.csr_spmm_etype_mean_bwd_ref(do_e, mask_r, et_r, *rev_r),))
+        check("edge_softmax_bwd", shape_r + " zero logits",
+              lambda: edge_softmax_agg_bwd_cuda(do, *args_r, *rev_r),
+              lambda: ref.edge_softmax_agg_bwd_ref(do, *args_r, *rev_r))
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"{len(failures)} backward kernel case(s) failed:\n"
+                             + "\n".join(failures))
+    return results
+
+
+def _loss_and_grads(params, cfg, graph):
+    """The LNN loss on ``graph`` and its gradient with respect to every
+    leaf of ``params``, by autograd."""
+    from repro_torch.core import lnn_loss
+    from repro_torch.params import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = lnn_loss(tree_unflatten(params, leaves), cfg, graph)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach().cpu() for g in grads]
+
+
+def train_step_agreement(dev, batches, split, feat_dim: int) -> dict:
+    """One train step's loss and gradients on the card against the same on
+    the host's plain path, from the same parameters (``lnn_fraud``'s width,
+    random from a seed), on the first community with train labels, for gcn,
+    gat and sage.  The loss within STEP_LOSS_RTOL; each gradient leaf within
+    STEP_GRAD_TOL of its scale (max |g|) of the host's f64 gradient, and of
+    the host's f32 gradient up to that one's own distance from the f64 one
+    (leaves whose gradient cancels, GAT's final-hop attention vectors, carry
+    f32 rounding of ~1e-5 of their scale on any device)."""
+    from repro_torch.core import LNNConfig, lnn_init
+    from repro_torch.kernels import _build
+    from repro_torch.params import flatten_paths, from_numpy, to_numpy, tree_map
+    from repro_torch.train.loop import train_masks
+
+    masks = train_masks(batches, split)
+    k = next(i for i, m in enumerate(masks) if m.sum() > 0)
+    m = torch.from_numpy(masks[k])
+    g_dev = batches[k].graph.to(dev).with_rev()._replace(label_mask=m.to(dev))
+    g_cpu = batches[k].graph.to("cpu")._replace(label_mask=m)
+    g_f64 = g_cpu._replace(**{f: getattr(g_cpu, f).double()
+                              for f in ("features", "nbr_mask", "label", "label_mask")})
+    rows = {}
+    for gnn in ("gcn", "gat", "sage"):
+        cfg = LNNConfig(gnn_type=gnn, num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                        feat_dim=feat_dim, pos_weight=3.0)
+        params = lnn_init(torch.Generator().manual_seed(2), cfg, device=dev)
+        _build.reset_launches()
+        loss_card, g_card = _loss_and_grads(params, cfg, g_dev)
+        counts = dict(_build.LAUNCHES)
+        p_cpu = from_numpy(to_numpy(params), "cpu")
+        loss_cpu, g_host = _loss_and_grads(p_cpu, cfg, g_cpu)
+        loss_f64, g_exact = _loss_and_grads(tree_map(lambda t: t.double(), p_cpu), cfg, g_f64)
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        worst = (0.0, 0.0, 0.0, "")
+        for (path, _), gc, gh, ge in zip(flatten_paths(params), g_card, g_host, g_exact):
+            scale = float(ge.abs().max())
+            to_exact = float((gc.double() - ge).abs().max()) / scale
+            beyond_host = float(((gc - gh).abs().double() - (gh.double() - ge).abs()).max()) / scale
+            raw = float((gc - gh).abs().max()) / scale
+            worst = max(worst, (max(to_exact, beyond_host), to_exact, raw, path))
+            if to_exact > STEP_GRAD_TOL or beyond_host > STEP_GRAD_TOL:
+                raise AssertionError(f"train step {gnn} {path}: card gradient off by "
+                                     f"{to_exact:.2e} of scale from f64, {beyond_host:.2e} "
+                                     f"beyond the host f32's own error (limit {STEP_GRAD_TOL:g})")
+        if not loss_rel <= STEP_LOSS_RTOL:
+            raise AssertionError(f"train step {gnn}: loss {loss_card} on the card, {loss_cpu} "
+                                 f"on the host ({loss_rel:.2e} relative)")
+        bwd = "edge_softmax_bwd" if gnn == "gat" else "csr_spmm_bwd"
+        if counts[bwd] == 0:
+            raise AssertionError(f"train step {gnn}: {bwd} never launched")
+        rows[gnn] = dict(loss_card=loss_card, loss_host=loss_cpu, loss_f64=loss_f64,
+                         loss_rel=loss_rel, worst_leaf=worst[3], worst_of_scale=worst[0],
+                         worst_to_f64=worst[1], worst_raw_card_vs_host=worst[2],
+                         launches={k_: v for k_, v in counts.items() if v})
+        print(f"train step {gnn} (N={g_dev.num_nodes} community {k}, {int(m.sum())} train "
+              f"labels): loss card {loss_card:.7f} host {loss_cpu:.7f} ({loss_rel:.1e} rel, "
+              f"limit {STEP_LOSS_RTOL:g}); worst leaf {worst[3]}: {worst[1]:.1e} of scale from "
+              f"the host's f64, card vs host f32 {worst[2]:.1e} (limit {STEP_GRAD_TOL:g} beyond "
+              f"the host's own f32 error); launches {rows[gnn]['launches']}")
+    return rows
+
+
+def table3_phase(dev) -> dict:
+    """Table 3's pipeline (``benchmarks/table3.py``) at the fraud slice's
+    data size on the card: GBDT on the raw features, the MLP and the LNN on
+    the GBDT-encoded ones, ``lnn_fraud``'s width, TRAIN_EPOCHS epochs per GNN
+    type.  The launch counters are zeroed just before each ``train_lnn``
+    run and read just after; then TIMED_STEPS synchronized steps (host
+    clock, median, and their launches per step) and one profiled step.
+    Fails on a loss that is not finite or a last epoch's loss not below the
+    first's; no gate on AUC."""
+    from repro_torch.baselines import GBDTConfig, train_gbdt
+    from repro_torch.baselines.mlp import MLPConfig, predict_mlp, train_mlp
+    from repro_torch.core import LNNConfig, lnn_loss
+    from repro_torch.data import (SynthConfig, build_communities, generate_transactions,
+                                  make_split_masks, standardize_features)
+    from repro_torch.kernels import _build
+    from repro_torch.train.loop import evaluate_lnn, train_lnn, train_masks
+    from repro_torch.train.metrics import binary_metrics
+    from repro_torch.train.optim import adamw, cosine_schedule, grad_step
+
+    t0 = time.perf_counter()
+    static, _ = generate_transactions(SynthConfig(num_users=3000, num_rings=50,
+                                                  feature_noise=0.8, seed=1))
+    split = make_split_masks(static.order_snapshot)
+    feats, _ = standardize_features(static.order_features, split == 0)
+    y = static.labels
+    tr, va, te = split == 0, split == 1, split == 2
+    t1 = time.perf_counter()
+    gbdt = train_gbdt(feats[tr], y[tr], GBDTConfig(), feats[va], y[va])
+    gbdt_s = time.perf_counter() - t1
+    m_gbdt = binary_metrics(y[te], gbdt.predict_proba(feats[te]))
+    enc = np.concatenate([feats, gbdt.leaf_value_features(feats)], 1)
+    mu, sd = enc[tr].mean(0), enc[tr].std(0) + 1e-6
+    enc = ((enc - mu) / sd).astype(np.float32)
+    t1 = time.perf_counter()
+    mlp = train_mlp(enc[tr], y[tr], enc[va], y[va], MLPConfig(pos_weight=3.0, seed=0),
+                    device=dev)
+    mlp_s = time.perf_counter() - t1
+    m_mlp = binary_metrics(y[te], predict_mlp(mlp, enc[te]))
+    static.order_features = enc
+    batches = build_communities(static, community_size=256, max_deg=24, seed=0)
+    masks = train_masks(batches, split)
+    steps_per_epoch = sum(int(m.sum() > 0) for m in masks)
+    print(f"table3 data: {len(y)} orders, {int(tr.sum())} train, features {feats.shape[1]} raw "
+          f"+ {len(gbdt.trees)} GBDT-encoded = {enc.shape[1]}, {len(batches)} communities "
+          f"({steps_per_epoch} with train labels); GBDT {gbdt_s:.2f} s (host), MLP "
+          f"{mlp_s:.2f} s (card); set-up {time.perf_counter() - t0:.2f} s")
+    rows = {"gbdt": m_gbdt, "mlp": m_mlp, "feat_dim": int(enc.shape[1]),
+            "steps_per_epoch": steps_per_epoch, "launches": {}}
+    tgraphs = [b.graph.to(dev).with_rev()._replace(label_mask=torch.from_numpy(m).to(dev))
+               for b, m in zip(batches, masks) if m.sum() > 0][:TIMED_STEPS]
+    expected = {"gcn": "csr_spmm_bwd", "gat": "edge_softmax_bwd", "sage": "csr_spmm_bwd"}
+    for gnn in ("gcn", "gat", "sage"):
+        cfg = LNNConfig(gnn_type=gnn, num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                        feat_dim=enc.shape[1], pos_weight=3.0)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        res = train_lnn(batches, split, cfg, epochs=TRAIN_EPOCHS, patience=6, seed=0,
+                        device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        counts = dict(_build.LAUNCHES)
+        for name, c in counts.items():
+            rows["launches"][name] = rows["launches"].get(name, 0) + c
+        losses = [h["train_loss"] for h in res.history]
+        if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"table3 {gnn}: epoch losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"table3 {gnn}: the loss did not fall: {losses}")
+        if counts[expected[gnn]] == 0:
+            raise AssertionError(f"table3 {gnn}: {expected[gnn]} was never launched")
+        m = evaluate_lnn(res.params, cfg, batches, split, 2, device=dev)
+
+        # synchronized steps from the trained weights, their launches, one profiled
+        init_fn, update_fn = adamw(cosine_schedule(3e-3, 1000, 10), weight_decay=1e-4)
+        state = {"p": res.params, "s": init_fn(res.params)}
+
+        def step(g):
+            state["p"], state["s"], _ = grad_step(lambda q: lnn_loss(q, cfg, g), state["p"],
+                                                  state["s"], update_fn)
+
+        step(tgraphs[0])                     # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        times = []
+        for g in tgraphs:
+            t1 = time.perf_counter()
+            step(g)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        per_step = {k_: v / len(tgraphs) for k_, v in _build.LAUNCHES.items() if v}
+        wall, busy, top, n_kernels = profiled(lambda: step(tgraphs[1]))
+        row = dict(epoch_losses=losses, val_ap=[h["val_ap"] for h in res.history],
+                   epoch_s=[h["seconds"] for h in res.history], train_s=train_s,
+                   step_ms_median=float(np.median(times)) * 1e3, launches_per_step=per_step,
+                   profiled_step_ms=wall * 1e3, busy_share=busy, kernels_per_step=n_kernels,
+                   top=top, test=m, launches=counts)
+        rows[gnn] = row
+        print(f"table3 {gnn}: epoch losses {', '.join(f'{x:.5f}' for x in losses)}; val AP "
+              f"{', '.join(f'{x:.4f}' for x in row['val_ap'])}; s/epoch "
+              f"{', '.join(f'{x:.2f}' for x in row['epoch_s'])} (eval included); step "
+              f"{row['step_ms_median']:.2f} ms median over {len(times)} synchronized; "
+              f"launches per step {per_step}; profiled step {row['profiled_step_ms']:.2f} ms, "
+              f"card busy {busy:.1%} over {n_kernels} kernels; test ROC-AUC "
+              f"{m['roc_auc']:.4f} AP {m['average_precision']:.4f} (GBDT "
+              f"{m_gbdt['roc_auc']:.4f}/{m_gbdt['average_precision']:.4f}, MLP "
+              f"{m_mlp['roc_auc']:.4f}/{m_mlp['average_precision']:.4f}); launches in "
+              f"train_lnn {counts}")
+        print(f"table3 {gnn} top device time in one step: "
+              + "; ".join(f"{name} {ms * 1e3:.2f} us" for name, ms in top))
+    return rows
+
+
+def training(dev, batches, split, feat_dim: int) -> dict:
+    """Step 7: the backward kernels, one step against the host, Table 3."""
+    results = grad_kernel_checks(dev, batches[0].graph.to(dev).with_rev())
+    results["train_step"] = train_step_agreement(dev, batches, split, feat_dim)
+    results["table3"] = table3_phase(dev)
+    print("train: " + json.dumps({k: results[k] for k in ("train_step", "table3")}))
+    return results
+
+
 def zoo_kernel_checks(dev) -> dict:
     """The zoo's three kernels against their plain versions on the card: at
     the zamba2-1.2b serving shapes (timed, with bounds and the library
@@ -934,6 +1283,9 @@ def main() -> int:
     if "--fraud-kernels" in sys.argv[1:]:
         fraud_kernel_checks(dev, batches, feat_dim)
         return 0
+    if "--train" in sys.argv[1:]:
+        training(dev, batches, split, feat_dim)
+        return 0
 
     # ------------------------------------ 2. kernels against their plain versions
     results = fraud_kernel_checks(dev, batches, feat_dim)
@@ -1031,6 +1383,11 @@ def main() -> int:
               "community refresh)")
     print("slice: " + json.dumps(slice_rows))
 
+    # ---------------------------------------------------------- 7. training
+    results.update(training(dev, batches, split, feat_dim))
+    for name, c in results["table3"]["launches"].items():
+        launches[name] += c
+
     # ------------------------------------------------- 5, 6. the zoo slice
     zoo = zoo_slice(dev)
     for name in ("ssd_scan", "flash_attention", "gqa_decode"):
@@ -1072,13 +1429,22 @@ def main() -> int:
         "gqa_decode": ("src/repro_torch/kernels/csrc/gqa_decode.cu",
                        "src/repro/kernels/gqa_decode.py:86"),
     }
+    # the backward kernels: the reference has none (it differentiates its XLA
+    # path), so each stands beside the forward's TPU kernel
+    grad_note = ("backward of the forward's kernel; the reference has no backward kernel and "
+                 "differentiates its XLA path (use_pallas=False)")
+    chosen["csr_spmm_bwd"] = results["csr_spmm_bwd"][0]
+    chosen["edge_softmax_bwd"] = results["edge_softmax_bwd"][0]
+    meta["csr_spmm_bwd"] = meta["csr_spmm"]
+    meta["edge_softmax_bwd"] = meta["edge_softmax"]
     kernels = []
     for name, case in chosen.items():
         source, replaces = meta[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=case["max_abs_err"],
-            atol=TOL["bfloat16" if "bfloat16" in case["shape"] else "float32"]["atol"],
+            atol=(GRAD_TOL["atol"] if name.endswith("_bwd") else
+                  TOL["bfloat16" if "bfloat16" in case["shape"] else "float32"]["atol"]),
             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
             bound_by=case["bound_by"], library_ms=case["library_ms"],
             shape=case["shape"], cases=len(results[name]),
@@ -1090,6 +1456,13 @@ def main() -> int:
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "composition_ms")}
     kernels[0]["cases"] += len(results["csr_spmm_etype_mean"])
+    for entry in kernels[-2:]:
+        entry["note"] = grad_note
+        entry["same_bits"] = all(c["same_bits"] for c in results[entry["name"]])
+        entry["launch_floor_ms"] = chosen[entry["name"]]["launch_floor_ms"]
+    per_type = results["csr_spmm_bwd"][1]
+    kernels[-2]["etype_mean"] = {k: per_type[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

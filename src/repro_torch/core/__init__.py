@@ -19,6 +19,7 @@ from repro_torch.core.lnn import (
     LNNConfig,
     lnn_forward,
     lnn_init,
+    lnn_loss,
     lnn_order_tower,
     lnn_stage1,
     lnn_stage2_batch,
@@ -47,6 +48,7 @@ __all__ = [
     "LNNConfig",
     "lnn_forward",
     "lnn_init",
+    "lnn_loss",
     "lnn_order_tower",
     "lnn_stage1",
     "lnn_stage2_batch",

@@ -17,6 +17,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import reverse_slots_ref
 from repro_torch.utils.device import resolve_device
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -64,6 +65,11 @@ class PaddedGraph(NamedTuple):
     # [N] int32 entity-type tower codes (-1 = untyped/non-entity), or None
     # on a homogeneous graph
     tower: Array | None = None
+    # the reverse-slot index the backward kernels read
+    # (``kernels.ref.reverse_slots_ref``): [N + 1] and [nnz] int32, built by
+    # :meth:`with_rev`; None until then
+    rev_ptr: Array | None = None
+    rev_slot: Array | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -72,6 +78,11 @@ class PaddedGraph(NamedTuple):
     @property
     def max_deg(self) -> int:
         return self.nbr_idx.shape[1]
+
+    @property
+    def rev(self):
+        """``(rev_ptr, rev_slot)``, or None where :meth:`with_rev` did not build it."""
+        return None if self.rev_ptr is None else (self.rev_ptr, self.rev_slot)
 
     def to(self, device=None) -> "PaddedGraph":
         """The same graph as torch tensors on ``device`` (default: CUDA).
@@ -96,6 +107,15 @@ class PaddedGraph(NamedTuple):
             label_mask=move(self.label_mask, f32),
             tower=None if self.tower is None else move(self.tower, i32),
         )
+
+    def with_rev(self) -> "PaddedGraph":
+        """This graph (from :meth:`to`) with its reverse-slot index over the
+        slots with ``nbr_mask > 0``, built on the host and moved to the
+        graph's device.  A gradient on the card needs it; a training loop
+        builds it once per graph, never per step."""
+        idx = torch.as_tensor(self.nbr_idx)
+        rev_ptr, rev_slot = reverse_slots_ref(idx.cpu(), torch.as_tensor(self.nbr_mask).cpu())
+        return self._replace(rev_ptr=rev_ptr.to(idx.device), rev_slot=rev_slot.to(idx.device))
 
 
 @dataclass

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.graph import EdgeType, NodeType, PaddedGraph
-from repro_torch.core.layers import LAYER_REGISTRY, _glorot, weighted_gather_sum
+from repro_torch.core.layers import LAYER_REGISTRY, _glorot, lookup, weighted_gather_sum
 from repro_torch.kernels import ops
 from repro_torch.params import tree_map
 from repro_torch.utils.device import resolve_device
@@ -131,12 +131,12 @@ def lnn_stage1(params, cfg: LNNConfig, graph: PaddedGraph):
         nbr_mask=graph.nbr_mask * (graph.nbr_etype != EdgeType.ENTITY_TO_ORDER)
     )
     h = graph.features @ params["input"]["w"] + params["input"]["b"]
-    h = h + params["type_emb"][graph.node_type.long()]
+    h = h + lookup(params["type_emb"], graph.node_type)
     if "typed" in params and graph.tower is not None:
         # typed entity-snapshot vertices additionally receive their
         # per-entity-type embedding (tower < 0 rows add zero)
         emb = params["typed"]["entity_type_emb"]
-        h = h + (graph.tower >= 0)[:, None] * emb[graph.tower.clamp_min(0).long()]
+        h = h + (graph.tower >= 0)[:, None] * lookup(emb, graph.tower.clamp_min(0))
     h = torch.relu(h)
     for layer in params["gnn"]:
         h = apply_fn(layer, h, stage1_graph)
@@ -189,12 +189,12 @@ def _final_hop_aggregate(params, cfg: LNNConfig, h, graph: PaddedGraph):
     w_fin = graph.nbr_mask * (graph.nbr_etype == EdgeType.ENTITY_TO_ORDER)
     if cfg.gnn_type in ("gcn", "sage"):
         cnt = w_fin.sum(-1, keepdim=True).clamp_min(1.0)
-        return weighted_gather_sum(h, graph.nbr_idx, w_fin / cnt)
+        return weighted_gather_sum(h, graph.nbr_idx, w_fin / cnt, graph.rev)
     # gat: the same masked edge softmax as a GAT layer, over final-hop edges
     p = params["last"]
     z = h @ p["w"]
     return ops.edge_softmax_agg(z, z @ p["a_src"], z @ p["a_dst"], graph.nbr_idx,
-                                w_fin, p["a_et"][graph.nbr_etype.long()])
+                                w_fin, lookup(p["a_et"], graph.nbr_etype), graph.rev)
 
 
 def lnn_stage2_batch(params, cfg: LNNConfig, h, graph: PaddedGraph):
@@ -270,3 +270,18 @@ def lnn_forward(params, cfg: LNNConfig, graph: PaddedGraph):
     """Full forward: stage2 ∘ stage1.  Logits [N]."""
     h = lnn_stage1(params, cfg, graph)
     return lnn_stage2_batch(params, cfg, h, graph)
+
+
+def lnn_loss(params, cfg: LNNConfig, graph: PaddedGraph):
+    """Masked weighted BCE over effective orders: the mean over rows with
+    ``label_mask * [node_type == ORDER]`` (divided by that mask's sum, at
+    least 1) of ``-(pos_weight * y * log σ(x) + (1 - y) * log σ(-x))``.
+
+    Differentiable on both paths: on the card the graph aggregations'
+    gradients come from their backward kernels, which read the graph's
+    reverse-slot index (``PaddedGraph.with_rev`` builds it)."""
+    logits = lnn_forward(params, cfg, graph)
+    mask = graph.label_mask * (graph.node_type == NodeType.ORDER).float()
+    y = graph.label
+    per = -(cfg.pos_weight * y * F.logsigmoid(logits) + (1.0 - y) * F.logsigmoid(-logits))
+    return (per * mask).sum() / mask.sum().clamp_min(1.0)

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches of each kernel, one per successful launch by its wrapper; a run
 #: sets them to 0 and reads them to show which kernels a path went through
 LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0,
-            "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0}
+            "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0,
+            "csr_spmm_bwd": 0, "edge_softmax_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -107,6 +108,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.edge_softmax_agg_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.edge_softmax_agg_f32.restype = i
+    lib.csr_spmm_bwd_f32.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.csr_spmm_bwd_f32.restype = i
+    lib.csr_spmm_etype_mean_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.csr_spmm_etype_mean_bwd_f32.restype = i
+    lib.edge_softmax_agg_bwd_f32.argtypes = [p] * 14 + [i, i, i, p]
+    lib.edge_softmax_agg_bwd_f32.restype = i
     lib.stage2_score_f32.argtypes = [p, p]
     lib.stage2_score_f32.restype = i
     for name in ("ssd_scan_f32", "ssd_scan_bf16"):
@@ -164,6 +171,31 @@ def check_tensor(t, name: str, dtypes, shape=None, device=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_rev(rev_ptr, rev_slot, n: int, device) -> None:
+    """Raise unless ``(rev_ptr, rev_slot)`` is a reverse-slot index of a
+    graph of ``n`` rows on ``device`` (``kernels.ref.reverse_slots_ref``)."""
+    check_tensor(rev_ptr, "rev_ptr", (torch.int32,), (n + 1,), device)
+    if not isinstance(rev_slot, torch.Tensor) or rev_slot.dim() != 1:
+        raise ValueError("rev_slot must be a 1-D tensor")
+    check_tensor(rev_slot, "rev_slot", (torch.int32,), None, device)
+
+
+def check_differentiable(name: str, x: torch.Tensor, rev, **fixed: torch.Tensor) -> None:
+    """Raise unless autograd can take ``name``'s gradient on the card through
+    its backward kernel: ``x`` float32 (the backward kernels are f32 only),
+    the graph's reverse-slot index given, and no gradient wanted for the
+    ``fixed`` inputs, which come from the graph."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: the backward kernel takes float32, got {x.dtype}")
+    if rev is None:
+        raise ValueError(f"{name}: a gradient on the card needs the graph's reverse-slot "
+                         "index (rev_ptr, rev_slot), which PaddedGraph.with_rev builds")
+    for what, t in fixed.items():
+        if t.requires_grad:
+            raise ValueError(f"{name}: no gradient with respect to {what}, which comes from "
+                             "the graph; detach it")
 
 
 def check_aligned(name: str, *tensors: torch.Tensor) -> None:

@@ -91,6 +91,35 @@ __device__ __forceinline__ bool is_valid(const TypedSlot& s) {
   return s.type >= 0 && s.mask != 0.f;
 }
 
+// Each type's float sum of the mask over the row's D slots, clamped to 1
+// (types no slot of the row carries keep 0, clamped like the others); s0
+// is the lane's slot of the first chunk of 32.
+__device__ __forceinline__ void type_counts(const int* ri, const float* rm, const int* re,
+                                            const TypedSlot& s0, int d, int n, int ntypes,
+                                            float (&cnt)[kMaxTypes]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int e = 0; e < kMaxTypes; ++e) cnt[e] = 0.f;
+  for (int k0 = 0; k0 < d; k0 += 32) {
+    const TypedSlot s = k0 == 0 ? s0 : typed_slot(ri, rm, re, k0 + lane, d, n, ntypes);
+#pragma unroll
+    for (int e = 0; e < kMaxTypes; ++e)
+      if (__ballot_sync(kFull, s.type == e && s.mask != 0.f))
+        cnt[e] += warp_sum(s.type == e ? s.mask : 0.f);
+  }
+#pragma unroll
+  for (int e = 0; e < kMaxTypes; ++e) cnt[e] = fmaxf(cnt[e], 1.f);
+}
+
+// A slot's weight: its mask over its own type's sum (the reference's w / cnt).
+__device__ __forceinline__ float slot_weight(const TypedSlot& s, const float (&cnt)[kMaxTypes]) {
+  float c = 1.f;
+#pragma unroll
+  for (int e = 0; e < kMaxTypes; ++e)
+    if (s.type == e) c = cnt[e];
+  return s.type >= 0 ? s.mask / c : 0.f;
+}
+
 template <typename T, int VEC, int NP>
 __global__ void __launch_bounds__(kWarps * 32)
     csr_spmm_etype_mean_kernel(const T* __restrict__ h, const int* __restrict__ idx,
@@ -104,28 +133,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float* rm = mask + base;
   const int* re = etype + base;
 
-  // each type's float sum of the mask over all D slots (types no slot of
-  // the row carries keep 0, clamped to 1 like the others)
   const TypedSlot s0 = typed_slot(ri, rm, re, lane, d, n, ntypes);
-  float cnt[kMaxTypes] = {};
-  for (int k0 = 0; k0 < d; k0 += 32) {
-    const TypedSlot s = k0 == 0 ? s0 : typed_slot(ri, rm, re, k0 + lane, d, n, ntypes);
-#pragma unroll
-    for (int e = 0; e < kMaxTypes; ++e)
-      if (__ballot_sync(kFull, s.type == e && s.mask != 0.f))
-        cnt[e] += warp_sum(s.type == e ? s.mask : 0.f);
-  }
-#pragma unroll
-  for (int e = 0; e < kMaxTypes; ++e) cnt[e] = fmaxf(cnt[e], 1.f);
-
-  // a slot's weight: its mask over its own type's sum (the reference's w / cnt)
-  auto weight = [&](const TypedSlot& s) {
-    float c = 1.f;
-#pragma unroll
-    for (int e = 0; e < kMaxTypes; ++e)
-      if (s.type == e) c = cnt[e];
-    return s.type >= 0 ? s.mask / c : 0.f;
-  };
+  float cnt[kMaxTypes];
+  type_counts(ri, rm, re, s0, d, n, ntypes, cnt);
+  auto weight = [&](const TypedSlot& s) { return slot_weight(s, cnt); };
   const float w0 = weight(s0);
   const unsigned valid0 = __ballot_sync(kFull, is_valid(s0));
   for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
@@ -149,7 +160,72 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (training): the gradient with respect to h, f32
+//
+//     csr_spmm:             dh[j, :] = sum over (i, k) -> j of w[i, k] * dout[i, :]
+//     csr_spmm_etype_mean:  dh[j, :] = sum over (i, k) -> j of
+//                                      mask[i, k] / cnt[i, e] * dout[e, i, :],  e = etype[i, k]
+//
+// The reference has no backward kernel: it differentiates its XLA path
+// (jnp.take + einsum), whose scatter-add sums in a fixed order.  Here each
+// sum runs over the graph's reverse-slot index (rev_row_sum in
+// nbr_slots.cuh), a warp per source row, so the bits do not change from call
+// to call.  The weights must be zero outside the index's slots (mask > 0).
+// The per-type entry first writes each slot's weight mask / cnt[type] (a
+// warp per node row, the forward's arithmetic) into a scratch [N, D], then
+// sums: two launches.  Bound, as the forward: bytes, and at the main path's
+// shape the launch and its chain of dependent loads.
+// ---------------------------------------------------------------------------
+
+template <int VEC, int NP>
+__global__ void __launch_bounds__(kWarps * 32)
+    csr_spmm_bwd_kernel(const float* __restrict__ dout, const int* __restrict__ rev_ptr,
+                        const int* __restrict__ rev_slot, const float* __restrict__ w,
+                        const int* __restrict__ etype, int ntypes, float* __restrict__ dh,
+                        int n, int d, int hdim) {
+  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (j >= n) return;  // uniform across the warp
+  rev_row_sum<VEC, NP>(dout, rev_ptr, rev_slot, w, etype, ntypes, nullptr, dh, nullptr, j, n, d,
+                       hdim);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    etype_mean_weights_kernel(const int* __restrict__ idx, const float* __restrict__ mask,
+                              const int* __restrict__ etype, float* __restrict__ wslot, int n,
+                              int d, int ntypes) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // uniform across the warp
+  const size_t base = (size_t)row * d;
+  const int* ri = idx + base;
+  const float* rm = mask + base;
+  const int* re = etype + base;
+  const TypedSlot s0 = typed_slot(ri, rm, re, lane, d, n, ntypes);
+  float cnt[kMaxTypes];
+  type_counts(ri, rm, re, s0, d, n, ntypes, cnt);
+  for (int k0 = 0; k0 < d; k0 += 32) {
+    const int k = k0 + lane;
+    if (k < d)
+      wslot[base + k] =
+          slot_weight(k0 == 0 ? s0 : typed_slot(ri, rm, re, k, d, n, ntypes), cnt);
+  }
+}
+
 int grid_rows(int n) { return (n + kWarps - 1) / kWarps; }
+
+int launch_bwd(const void* dout, const void* rev_ptr, const void* rev_slot, const void* w,
+               const void* etype, int ntypes, void* dh, int n, int d, int hdim, void* stream) {
+  int vec, np;
+  pick_cols(hdim, (int)sizeof(float), dout, dh, &vec, &np);
+  return dispatch_cols<float>(vec, np, [&](auto v, auto p) {
+    csr_spmm_bwd_kernel<decltype(v)::value, decltype(p)::value>
+        <<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
+            (const float*)dout, (const int*)rev_ptr, (const int*)rev_slot, (const float*)w,
+            (const int*)etype, ntypes, (float*)dh, n, d, hdim);
+    return (int)cudaGetLastError();
+  });
+}
 
 template <typename T>
 int launch(const void* h, const void* idx, const void* w, void* out, int n, int d, int hdim,
@@ -204,4 +280,24 @@ extern "C" int csr_spmm_etype_mean_bf16(const void* h, const void* idx, const vo
                                         int ntypes, void* stream) {
   return launch_etype_mean<__nv_bfloat16>(h, idx, mask, etype, out, n, d, hdim, ntypes,
                                           stream);
+}
+
+extern "C" int csr_spmm_bwd_f32(const void* dout, const void* w, const void* rev_ptr,
+                                const void* rev_slot, void* dh, int n, int d, int hdim,
+                                void* stream) {
+  if (n <= 0 || d <= 0 || hdim <= 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd(dout, rev_ptr, rev_slot, w, nullptr, 1, dh, n, d, hdim, stream);
+}
+
+extern "C" int csr_spmm_etype_mean_bwd_f32(const void* dout, const void* idx, const void* mask,
+                                           const void* etype, const void* rev_ptr,
+                                           const void* rev_slot, void* wslot, void* dh, int n,
+                                           int d, int hdim, int ntypes, void* stream) {
+  if (n <= 0 || d <= 0 || hdim <= 0 || ntypes < 1 || ntypes > kMaxTypes)
+    return (int)cudaErrorInvalidValue;
+  etype_mean_weights_kernel<<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const int*)idx, (const float*)mask, (const int*)etype, (float*)wslot, n, d, ntypes);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_bwd(dout, rev_ptr, rev_slot, wslot, etype, ntypes, dh, n, d, hdim, stream);
 }

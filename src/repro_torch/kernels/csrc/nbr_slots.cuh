@@ -165,6 +165,62 @@ __device__ __forceinline__ void fma_cols(float (&acc)[NP][VEC], float w,
     for (int i = 0; i < VEC; ++i) acc[p][i] = fmaf(x[p][i], w, acc[p][i]);
 }
 
+// The backward kernels' source pass: this warp's source row j gets
+//
+//     out[j, :]  = sum over j's reverse slots s of  w[s] * g[plane(s) * n + s / d, :]
+//     out_s[j]   = sum over j's reverse slots s of  scal[s]        (where scal is given)
+//
+// over rev_slot[rev_ptr[j] .. rev_ptr[j + 1]), the flat slots i * d + k whose
+// clamped index is j, in ascending order (kernels.ref.reverse_slots_ref).
+// plane(s) is etype[s] where etype is given (a slot whose type lies outside
+// [0, ntypes) adds nothing), else 0.  The slots are read 32 at a time, a lane
+// per slot, and the rows of g gathered as the forward gathers rows of h: a
+// ballot of the non-zero weights, kUnroll in flight, added in slot order.
+// Every sum is taken in one fixed order, so two calls give the same bits
+// (no atomics).  A row with no slot writes zeros.
+template <int VEC, int NP>
+__device__ __forceinline__ void rev_row_sum(const float* __restrict__ g,
+                                            const int* __restrict__ rev_ptr,
+                                            const int* __restrict__ rev_slot,
+                                            const float* __restrict__ w,
+                                            const int* __restrict__ etype, int ntypes,
+                                            const float* __restrict__ scal,
+                                            float* __restrict__ out,
+                                            float* __restrict__ out_s, int j, int n, int d,
+                                            int hdim) {
+  const int lane = threadIdx.x & 31;
+  const int q0 = rev_ptr[j], q1 = rev_ptr[j + 1];
+  float s_acc = 0.f;
+  for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
+    const int first = col0 + lane * VEC;
+    float acc[NP][VEC] = {};
+    auto add = [&](int, float wj, const float(&x)[NP][VEC]) { fma_cols(acc, wj, x); };
+    for (int q = q0; q < q1; q += 32) {
+      int row = 0;
+      float wq = 0.f, sq = 0.f;
+      if (q + lane < q1) {
+        const int s = rev_slot[q + lane];
+        int plane = 0;
+        wq = w[s];
+        if (etype != nullptr) {
+          plane = etype[s];
+          if (plane < 0 || plane >= ntypes) {
+            plane = 0;
+            wq = 0.f;
+          }
+        }
+        row = plane * n + s / d;
+        if (scal != nullptr) sq = scal[s];
+      }
+      if (scal != nullptr && col0 == 0) s_acc += warp_sum(sq);
+      gather_slots<float, VEC, NP>(g, hdim, first, __ballot_sync(kFull, wq != 0.f), row, wq, 0,
+                                   add);
+    }
+    store_cols<float, VEC, NP>(out + (size_t)j * hdim, first, hdim, acc);
+  }
+  if (out_s != nullptr && lane == 0) out_s[j] = s_acc;
+}
+
 // Host side: the vector width and the groups per lane for a row of hdim
 // elements of `elem` bytes.  VEC is the widest of 8, 4, 2, 1 elements that
 // fits 16 bytes, divides hdim, keeps all 32 lanes busy (32 * VEC <= hdim)

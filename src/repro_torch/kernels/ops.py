@@ -4,20 +4,32 @@ The tensor's device picks the path: a CUDA tensor launches the hand-written
 kernel (and raises if it cannot), a CPU tensor takes the plain PyTorch
 version in ``kernels.ref``, anything else raises.  There is no fallback from
 one to the other.
+
+Gradients: on the CPU the plain versions are ordinary autograd.  On the
+card the three graph aggregations go through ``torch.autograd.Function``s
+whose backward is a kernel too (``csr_spmm.CsrSpmm``,
+``csr_spmm.CsrSpmmEtypeMean``, ``edge_softmax.EdgeSoftmaxAgg``) when a
+gradient is wanted; they read the graph's reverse-slot index ``rev``
+(``PaddedGraph.rev``).  The other four kernels have no backward: on the
+card they raise (:func:`refuse_grad`) rather than return a tensor that
+autograd cannot differentiate.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.csr_spmm import csr_spmm_cuda, csr_spmm_etype_mean_cuda
-from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+from repro_torch.kernels.csr_spmm import (csr_spmm_autograd, csr_spmm_cuda,
+                                          csr_spmm_etype_mean_autograd,
+                                          csr_spmm_etype_mean_cuda)
+from repro_torch.kernels.edge_softmax import edge_softmax_agg_autograd, edge_softmax_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.stage2_score import (flatten_stage2_params, pack_stage2_params,
                                               stage2_score_cuda, unpack_stage2_pack)
 from repro_torch.models.common import blockwise_attention
+from repro_torch.params import tree_leaves
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -29,25 +41,51 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for tensors on {t.device}: use cuda or cpu")
 
 
-def csr_spmm(h, nbr_idx, weights):
-    """out[i] = sum_d weights[i, d] * h[nbr_idx[i, d]]."""
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would want a gradient through ``kernel``, which has
+    no backward: grad mode is on and a floating tensor among ``tensors``
+    requires grad.  Costs nothing under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward kernel: call it under torch.no_grad() "
+                           "or on tensors that do not require grad")
+
+
+def csr_spmm(h, nbr_idx, weights, rev=None):
+    """out[i] = sum_d weights[i, d] * h[nbr_idx[i, d]].  ``rev``: the graph's
+    reverse-slot index, which a gradient on the card needs."""
     if _on_cuda(h):
+        if _wants_grad(h, weights):
+            return csr_spmm_autograd(h, nbr_idx, weights, rev)
         return csr_spmm_cuda(h, nbr_idx, weights)
     return ref.csr_spmm_ref(h, nbr_idx, weights)
 
 
-def csr_spmm_etype_mean(h, nbr_idx, nbr_mask, nbr_etype, num_types: int):
+def csr_spmm_etype_mean(h, nbr_idx, nbr_mask, nbr_etype, num_types: int, rev=None):
     """out[e, i] = the mean of h over i's neighbours of edge type e (masked
     by ``nbr_mask``, divided by the mask's sum for that type, at least 1):
-    [num_types, N, H], one launch on the card."""
+    [num_types, N, H], one launch on the card.  ``rev`` as for
+    :func:`csr_spmm`."""
     if _on_cuda(h):
+        if _wants_grad(h, nbr_mask):
+            return csr_spmm_etype_mean_autograd(h, nbr_idx, nbr_mask, nbr_etype, num_types,
+                                                rev)
         return csr_spmm_etype_mean_cuda(h, nbr_idx, nbr_mask, nbr_etype, num_types)
     return ref.csr_spmm_etype_mean_ref(h, nbr_idx, nbr_mask, nbr_etype, num_types)
 
 
-def edge_softmax_agg(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias):
-    """GAT masked neighbour softmax + weighted aggregation."""
+def edge_softmax_agg(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias, rev=None):
+    """GAT masked neighbour softmax + weighted aggregation.  ``rev`` as for
+    :func:`csr_spmm`."""
     if _on_cuda(z):
+        if _wants_grad(z, s_src, s_dst, nbr_mask, etype_bias):
+            return edge_softmax_agg_autograd(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias,
+                                             rev)
         return edge_softmax_agg_cuda(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias)
     return ref.edge_softmax_agg_ref(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias)
 
@@ -73,6 +111,9 @@ def stage2_score(params, gnn_type, entity_emb, emb_mask, order_feats,
         slot_type = torch.full(emb_mask.shape, -1, dtype=torch.int32,
                                device=emb_mask.device)
     if _on_cuda(entity_emb):
+        if torch.is_grad_enabled():          # the tree is walked only where grad is on
+            refuse_grad("stage2_score", entity_emb, emb_mask, order_feats,
+                        *tree_leaves(params))
         if pack is None:
             pack = pack_stage2_params(flatten_stage2_params(params, gnn_type), gnn_type, typed)
         return stage2_score_cuda(entity_emb, emb_mask, order_feats, pack, slot_type)
@@ -86,6 +127,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     aligned to the end of the keys.  The plain version is the reference's
     XLA path (``blockwise_attention`` over key blocks of min(512, Sk))."""
     if _on_cuda(q):
+        refuse_grad("flash_attention", q, k, v)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return blockwise_attention(q, k, v, causal=causal, window=window,
                                block_k=min(512, k.shape[2]))
@@ -95,6 +137,7 @@ def gqa_decode(q, k, v, kv_len=None, window: int | None = None):
     """One-token attention over the cache.  q: [B, Hq, Dh]; k/v:
     [B, Hkv, S, Dh]; kv_len: [B] int32 valid lengths (None: all S)."""
     if _on_cuda(q):
+        refuse_grad("gqa_decode", q, k, v)
         return gqa_decode_cuda(q, k, v, kv_len=kv_len, window=window)
     return ref.gqa_decode_ref(q, k, v, kv_len=kv_len, window=window)
 
@@ -111,6 +154,7 @@ def ssd_scan(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     recurrence; ``compute_dtype`` is the chunked form's intra-chunk dtype.
     """
     if _on_cuda(x):
+        refuse_grad("ssd_scan", x, dt, a, b, c, d_skip)
         return ssd_scan_cuda(x, dt, a, b, c, d_skip)
     s = x.shape[1]
     if s % chunk:

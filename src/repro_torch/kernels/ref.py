@@ -15,12 +15,19 @@ from repro_torch.kernels.stage2_score import unpack_stage2_params
 _LOG2E = 1.4426950408889634
 
 
+def _acc_dtype(dtype):
+    """The type a plain version accumulates in: f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def csr_spmm_ref(h, nbr_idx, weights):
-    """out[i] = sum_d weights[i, d] * h[nbr_idx[i, d]], accumulated in f32.
+    """out[i] = sum_d weights[i, d] * h[nbr_idx[i, d]], accumulated in f32
+    (f64 for f64 inputs).
 
     h: [N, H]; nbr_idx: [N, D] int32; weights: [N, D].  Returns h's dtype."""
-    msgs = h[nbr_idx.long()].float()                       # [N, D, H]
-    out = torch.einsum("ndh,nd->nh", msgs, weights.float())
+    acc = _acc_dtype(h.dtype)
+    msgs = h[nbr_idx.long()].to(acc)                       # [N, D, H]
+    out = torch.einsum("ndh,nd->nh", msgs, weights.to(acc))
     return out.to(h.dtype)
 
 
@@ -36,16 +43,124 @@ def csr_spmm_etype_mean_ref(h, nbr_idx, nbr_mask, nbr_etype, num_types: int):
     return torch.stack(outs)
 
 
+def _leaky_relu(x):
+    """leaky_relu with slope 0.2 as ``jax.nn.leaky_relu`` takes it: ``x``
+    where ``x >= 0``, so its derivative at exactly 0 is 1 (torch's
+    ``F.leaky_relu`` gives 0.2 there); the same values as ``F.leaky_relu``."""
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
 def edge_softmax_agg_ref(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias):
     """GAT-style masked neighbour softmax + weighted aggregation.
 
     z: [N, H]; s_src/s_dst: [N]; nbr_idx/nbr_mask/etype_bias: [N, D]."""
     idx = nbr_idx.long()
-    logits = s_src[idx] + s_dst[:, None] + etype_bias
-    logits = F.leaky_relu(logits, 0.2)
+    logits = _leaky_relu(s_src[idx] + s_dst[:, None] + etype_bias)
     logits = torch.where(nbr_mask > 0, logits, torch.full_like(logits, -1e9))
-    attn = torch.softmax(logits.float(), dim=-1) * nbr_mask
+    attn = torch.softmax(logits.to(_acc_dtype(logits.dtype)), dim=-1) * nbr_mask
     return torch.einsum("ndh,nd->nh", z[idx], attn.to(z.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Backward of the graph kernels (training)
+# ---------------------------------------------------------------------------
+
+def reverse_slots_ref(nbr_idx, nbr_mask):
+    """The reverse-slot index of a padded graph, which the backward kernels
+    read to sum into source rows in a fixed order, without atomics.
+
+    The slots are the flat positions ``i * D + d`` with ``nbr_mask > 0``;
+    empty slots (``nbr_mask == 0``, padding points at row 0) are left out.
+    Source row ``j``'s slots, those whose index (clamped into [0, N), as
+    the kernels clamp it) is ``j``, are ``rev_slot[rev_ptr[j]:rev_ptr[j +
+    1]]`` in ascending order.  Returns ``(rev_ptr [N + 1], rev_slot [nnz])``,
+    both int32.  Any weight or mask a later call passes must be zero
+    outside these slots (stage 1's mask and the final hop's are)."""
+    n = nbr_idx.shape[0]
+    slots = torch.nonzero((nbr_mask > 0).flatten()).flatten()     # ascending
+    src = nbr_idx.flatten()[slots].long().clamp(0, max(n - 1, 0))
+    order = torch.sort(src, stable=True).indices
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=nbr_idx.device)
+    ptr[1:] = torch.cumsum(torch.bincount(src, minlength=n), 0)
+    return ptr.int(), slots[order].int()
+
+
+def _rev_sum(values, rev_ptr, n: int):
+    """out[j] = sum of ``values`` over row j's reverse slots, in their
+    order: ``values`` holds one entry (a scalar or a row) per reverse slot."""
+    src = torch.repeat_interleave(torch.arange(n, device=values.device),
+                                  rev_ptr.long().diff(), output_size=values.shape[0])
+    out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, src, values)
+
+
+def csr_spmm_bwd_ref(dout, weights, rev_ptr, rev_slot):
+    """Gradient of :func:`csr_spmm_ref` with respect to ``h``, in closed
+    form over the reverse index: dh[j] = sum over j's slots (i, d) of
+    weights[i, d] * dout[i].  dout: [N, H] f32; weights: [N, D]."""
+    n, d = weights.shape
+    slot = rev_slot.long()
+    w = weights.flatten()[slot]
+    return _rev_sum(w[:, None] * dout[slot // d], rev_ptr, n)
+
+
+def etype_mean_weights_ref(nbr_mask, nbr_etype, num_types: int):
+    """Each slot's weight in the per-edge-type mean: mask[i, d] / cnt[i, e]
+    for e = etype[i, d] in [0, num_types), cnt[i, e] the row's mask sum
+    over type e (at least 1); 0 for a slot of a type outside that range.
+    [N, D], the dtype of ``nbr_mask``."""
+    et = nbr_etype.long()
+    w = torch.zeros_like(nbr_mask)
+    for e in range(num_types):
+        we = nbr_mask * (et == e)
+        w = w + we / we.sum(-1, keepdim=True).clamp_min(1.0)
+    return w
+
+
+def csr_spmm_etype_mean_bwd_ref(dout, nbr_mask, nbr_etype, rev_ptr, rev_slot):
+    """Gradient of :func:`csr_spmm_etype_mean_ref` with respect to ``h``:
+    dh[j] = sum over j's slots (i, d) of mask[i, d] / cnt[i, e] *
+    dout[e, i], e = etype[i, d] (slots of a type outside [0, E) add
+    nothing).  dout: [E, N, H] f32."""
+    num_types = dout.shape[0]
+    n, d = nbr_mask.shape
+    w = etype_mean_weights_ref(nbr_mask, nbr_etype, num_types)
+    slot = rev_slot.long()
+    plane = nbr_etype.long().flatten()[slot]
+    keep = (plane >= 0) & (plane < num_types)
+    rows = dout[plane.clamp(0, num_types - 1), slot // d]
+    vals = torch.where(keep, w.flatten()[slot], torch.zeros_like(rows[:, 0]))
+    return _rev_sum(vals[:, None] * rows, rev_ptr, n)
+
+
+def edge_softmax_agg_bwd_ref(dout, z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias,
+                             rev_ptr, rev_slot):
+    """Gradients of :func:`edge_softmax_agg_ref` with respect to ``z``,
+    ``s_src``, ``s_dst`` and ``etype_bias``, in closed form.
+
+    With p the softmax over a row's D slots (masked logits at -1e9) and
+    g[i, d] = dout[i] . z[idx[i, d]]: dp = mask * g, c_i = sum_d p * dp,
+    dlogit = p * (dp - c_i) * leaky'(pre) on slots with mask > 0 (0 on
+    the others, where the logit is the constant -1e9), leaky' 1 where the
+    pre-activation is >= 0, else 0.2.  Then ds_dst[i] = sum_d dlogit,
+    d(etype_bias) = dlogit, and over the reverse index dz[j] = sum of
+    p * mask * dout[i] and ds_src[j] = sum of dlogit."""
+    n, d = nbr_mask.shape
+    idx = nbr_idx.long()
+    valid = nbr_mask > 0
+    pre = s_src[idx] + s_dst[:, None] + etype_bias
+    logits = torch.where(valid, _leaky_relu(pre), torch.full_like(pre, -1e9))
+    p = torch.softmax(logits, dim=-1)
+    dp = nbr_mask * torch.einsum("ndh,nh->nd", z[idx], dout)
+    c = (p * dp).sum(-1, keepdim=True)
+    slope = torch.where(pre >= 0, torch.ones_like(pre), torch.full_like(pre, 0.2))
+    dlogit = torch.where(valid, p * (dp - c) * slope, torch.zeros_like(pre))
+    slot = rev_slot.long()
+    alpha = (p * nbr_mask).flatten()[slot]
+    dz = _rev_sum(alpha[:, None] * dout[slot // d], rev_ptr, n)
+    ds_src = _rev_sum(dlogit.flatten()[slot], rev_ptr, n)
+    return dz, ds_src, dlogit.sum(-1), dlogit
 
 
 def stage2_score_ref(entity_emb, emb_mask, order_feats, flat,

@@ -22,14 +22,32 @@ _STEP_KEY = "__step__"
 _BF16_BITS = np.dtype("V2")
 
 
-def tree_map(fn, tree):
-    """``tree`` with ``fn`` applied to every leaf (dicts and lists kept;
-    tuples become lists)."""
+def tree_map(fn, tree, *rest):
+    """``tree`` with ``fn`` applied to every leaf (dicts, lists and
+    NamedTuples kept; other tuples become lists).  With ``rest``, trees of
+    the same structure, ``fn`` takes the leaf of each at the same key path
+    (dicts are matched by key, not by order)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s (and
+    :func:`flatten_paths`') order."""
+    return [leaf for _, leaf in flatten_paths(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure (as :func:`tree_map` builds it) holding
+    ``leaves`` in :func:`tree_leaves`' order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def _is_bf16(dtype: np.dtype) -> bool:
@@ -69,9 +87,12 @@ def to_numpy(tree):
 
 
 def flatten_paths(tree, prefix=""):
-    """Yield ``(path, leaf)`` pairs of ``tree``, paths ``/``-joined."""
+    """Yield ``(path, leaf)`` pairs of ``tree``, paths ``/``-joined: dict
+    keys, list positions and a NamedTuple's field names, as JAX names them."""
     if isinstance(tree, dict):
         items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
@@ -81,9 +102,15 @@ def flatten_paths(tree, prefix=""):
         yield from flatten_paths(v, f"{prefix}/{k}" if prefix else k)
 
 
-def save_npz(path: str, tree) -> str:
-    """Atomically write ``tree`` to ``path`` in the ``/``-joined layout."""
-    payload = {k: np.asarray(v) for k, v in flatten_paths(to_numpy(tree))}
+def save_npz(path: str, tree, step: int | None = None) -> str:
+    """Atomically write ``tree`` to ``path`` in the ``/``-joined layout, and
+    ``step``, where given, under ``__step__`` (the layout of the reference's
+    ``save_checkpoint``): into a temporary file of the same directory, then
+    renamed.  A tensor leaf is written as :func:`to_numpy` gives it."""
+    payload = {k: np.asarray(to_numpy(v) if isinstance(v, torch.Tensor) else v)
+               for k, v in flatten_paths(tree)}
+    if step is not None:
+        payload[_STEP_KEY] = np.asarray(step, np.int64)
     directory = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")

@@ -17,9 +17,11 @@ import torch
 from repro_torch.core import LNNConfig, lnn_init
 from repro_torch.core.graph import COOGraph, pad_graph
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.csr_spmm import csr_spmm_cuda, csr_spmm_etype_mean_cuda
+from repro_torch.baselines import MLPConfig, mlp_init, train_mlp
+from repro_torch.kernels.csr_spmm import (csr_spmm_bwd_cuda, csr_spmm_cuda,
+                                          csr_spmm_etype_mean_bwd_cuda, csr_spmm_etype_mean_cuda)
 from repro_torch.configs import get_config
-from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+from repro_torch.kernels.edge_softmax import edge_softmax_agg_bwd_cuda, edge_softmax_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
@@ -28,6 +30,7 @@ from repro_torch.launch import serve as zoo_serve
 from repro_torch.models import init_cache, init_params
 from repro_torch.params import from_numpy
 from repro_torch.serve import BatchLayer, KVStore, SpeedLayer
+from repro_torch.train.loop import evaluate_lnn, train_lnn
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -74,7 +77,8 @@ def _tiny_graph():
 
 @pytest.mark.parametrize("entry", ["lnn_init", "from_numpy", "BatchLayer",
                                    "SpeedLayer", "PaddedGraph.to", "zoo init_params",
-                                   "zoo init_cache", "zoo serve", "zoo serve main"])
+                                   "zoo init_cache", "zoo serve", "zoo serve main",
+                                   "train_lnn", "evaluate_lnn", "mlp_init", "train_mlp"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     zoo = get_config("zamba2-1.2b").reduced()
@@ -88,6 +92,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
         "zoo init_cache": lambda: init_cache(zoo, 1, 8),
         "zoo serve": lambda: zoo_serve.serve(zoo, 1, 8, 1),
         "zoo serve main": lambda: zoo_serve.main(["--arch", "zamba2-1.2b"]),
+        "train_lnn": lambda: train_lnn([], np.zeros(0, np.int32), cfg),
+        "evaluate_lnn": lambda: evaluate_lnn({}, cfg, [], np.zeros(0, np.int32)),
+        "mlp_init": lambda: mlp_init(torch.Generator().manual_seed(0), 3, MLPConfig()),
+        "train_mlp": lambda: train_mlp(np.zeros((4, 3)), np.zeros(4), np.zeros((2, 3)),
+                                       np.zeros(2)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -116,7 +125,28 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         edge_softmax_agg_cuda(h, h[:, 0].contiguous(), h[:, 0].contiguous(), idx, w, w)
     with pytest.raises(ValueError, match="CUDA"):
         stage2_score_cuda(torch.zeros(2, 3, 4), torch.zeros(2, 3), torch.zeros(2, 5), ())
+    ptr, slot = torch.zeros(5, dtype=torch.int32), torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        csr_spmm_bwd_cuda(h, w, ptr, slot)
+    with pytest.raises(ValueError, match="CUDA"):
+        csr_spmm_etype_mean_bwd_cuda(torch.zeros(4, 4, 3), idx, w, idx, ptr, slot)
+    with pytest.raises(ValueError, match="CUDA"):
+        edge_softmax_agg_bwd_cuda(h, h, h[:, 0].contiguous(), h[:, 0].contiguous(), idx, w, w,
+                                  ptr, slot)
     assert _build.LAUNCHES == before
+
+
+def test_grad_guard_refuses_a_gradient_it_cannot_give():
+    """The guard that ``stage2_score``, ``ssd_scan``, ``flash_attention`` and
+    ``gqa_decode`` run on the card, which have no backward kernel: it raises
+    when autograd would want a gradient through them, and only then."""
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="ssd_scan has no backward kernel.*torch.no_grad"):
+        ops.refuse_grad("ssd_scan", torch.zeros(2), x)
+    with torch.no_grad():
+        ops.refuse_grad("ssd_scan", x)
+    ops.refuse_grad("ssd_scan", torch.zeros(3), None, torch.zeros(2, dtype=torch.int32))
+    ops.refuse_grad("ssd_scan", x.detach())
 
 
 @pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention", "gqa_decode"])
