@@ -25,19 +25,34 @@
    launched its aggregation kernel other than once per GNN layer (GCN's
    four edge types in one ``csr_spmm`` launch).  Then a breakdown of one
    scoring micro-batch (KV lookup, stage-2 call, the card's busy share).
-4. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
+4. Streams the same world through ``repro_torch.stream.StreamingEngine``
+   (10,089 checkout events at 400/s; ingest -> community-local stage-1
+   refresh on every closed window -> micro-batched stage 2) for gcn, gat and
+   sage at one worker, with the launch counters zeroed just before and read
+   just after: throughput, latency percentiles, flushes, refreshes, where
+   the time goes; the run fails unless ``stage2_score`` launched once per
+   flush and the aggregation kernel once per GNN layer of every stage-1
+   call.  On the first 2,000 events: four workers against one and
+   community-local against whole-graph refresh, bit for bit; the async
+   refresh against the sync one (store bytes, exact launch counts); the
+   replay against the monolithic forward (1e-4) and against the host's
+   plain path (scores 1e-5, KV embeddings 2e-5); the typed attack stream at
+   one and four workers; then the kernels at the stream's own shapes (one
+   full stage-1 bin, N=4096 D=32; ``stage2_score`` at B=2, its rows against
+   B=16 bit for bit, and typed at every bucket).
+5. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
    ``gqa_decode``) against their plain versions at the zamba2-1.2b serving
    shapes and at ragged ones, f32 and bf16, timed beside their bounds and
    ``scaled_dot_product_attention`` as a yardstick.
-5. Serves zamba2-1.2b at full width and depth in bf16 through
+6. Serves zamba2-1.2b at full width and depth in bf16 through
    ``repro_torch.launch.serve.serve`` (random weights from a seed): prefill
    4 prompts of 512 tokens, decode 32 tokens, with the launch counters
    zeroed just before and read just after; then where the time of prefill
    and of a decode step goes (``torch.profiler``).
-6. In f32 at full width, the kernel path's logits (forward, prefill and 4
+7. In f32 at full width, the kernel path's logits (forward, prefill and 4
    decode steps) against the port's plain path on the host, and prefill ->
    decode consistency on the card and on the host.
-7. Training (``repro_torch.train``): the two backward kernels
+8. Training (``repro_torch.train``): the two backward kernels
    (``csr_spmm_bwd``, ``edge_softmax_bwd``) against their plain versions at
    the first community's stage-1 shapes (timed, with bounds, the launch
    floor and ``torch.sparse.mm``) and at ragged ones, each called twice for
@@ -48,13 +63,14 @@
    launch counters zeroed just before the training runs and read just
    after, ms per synchronized step, the card's busy share over one step and
    test ROC-AUC/AP beside the baselines'.
-8. Prints one JSON line with every kernel's numbers, then the result line.
+9. Prints one JSON line with every kernel's numbers, then the result line.
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
-(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 4 only,
-``--fraud-kernels`` steps 1 and 2's fraud kernels, and ``--train`` steps 1
-and 7: a quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
+(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 5 only,
+``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
+and 8, and ``--stream`` steps 1 and 4: a quick build, check and timing,
+with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
 import json
@@ -93,6 +109,10 @@ STEP_LOSS_RTOL = 1e-5        # one train step, card against the host's plain pat
 STEP_GRAD_TOL = 2e-5         # ... each gradient leaf, of its scale
 TRAIN_EPOCHS = 3             # per GNN type in the Table 3 phase
 TIMED_STEPS = 20             # synchronized train steps timed per GNN type
+STREAM_RATE = 400.0          # checkout events per virtual second
+STREAM_CHECK_EVENTS = 2000   # the stream's first events, replayed by every check
+STREAM_SCORE_TOL = 1e-5      # a replay's scores, card against the host's plain path
+STREAM_STORE_TOL = 2e-5      # ... its KV embeddings (stage 1's graph aggregations)
 
 
 def time_ms(*fns) -> float:
@@ -1225,6 +1245,426 @@ def zoo_agreement(dev) -> dict:
     return gaps
 
 
+def _timed(obj, name: str, log: list) -> None:
+    """Wrap ``obj.name`` so that each call appends its host-clock seconds to
+    ``log`` (two clock reads a call)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.append(time.perf_counter() - t0)
+
+    setattr(obj, name, wrapper)
+
+
+def _store_contents(store) -> dict:
+    """key -> (value bytes, model version) of every entry of every shard."""
+    return {k: (e.value.tobytes(), e.model_version)
+            for shard in store._shards for k, e in shard.items()}
+
+
+def _host_gap(scores, host_scores, store, host_store, what: str) -> tuple[float, float]:
+    """max |score| and max |embedding| gaps of the card's replay from the host's
+    plain path, raising beyond STREAM_SCORE_TOL / STREAM_STORE_TOL."""
+    if set(scores) != set(host_scores):
+        raise AssertionError(f"{what}: the card and the host scored other orders")
+    orders = sorted(scores)
+    s, hs = np.asarray([scores[o] for o in orders]), np.asarray([host_scores[o] for o in orders])
+    c, hc = _store_contents(store), _store_contents(host_store)
+    if set(c) != set(hc):
+        raise AssertionError(f"{what}: the card and the host wrote other KV keys")
+    keys = sorted(c)
+    v = np.stack([np.frombuffer(c[k][0], np.float32) for k in keys])
+    hv = np.stack([np.frombuffer(hc[k][0], np.float32) for k in keys])
+    np.testing.assert_allclose(s, hs, atol=STREAM_SCORE_TOL, rtol=STREAM_SCORE_TOL,
+                               err_msg=f"{what}: scores, card against host")
+    np.testing.assert_allclose(v, hv, atol=STREAM_STORE_TOL, rtol=STREAM_STORE_TOL,
+                               err_msg=f"{what}: KV embeddings, card against host")
+    if [c[k][1] for k in keys] != [hc[k][1] for k in keys]:
+        raise AssertionError(f"{what}: version stamps differ between card and host")
+    return float(np.abs(s - hs).max()), float(np.abs(v - hv).max())
+
+
+def stage1_scope_rows(params, cfg, ingester, dev) -> dict:
+    """Stage 1 on one bin of communities (the first ones by id, up to 2,048
+    nodes, padded to its pow2) and on the whole graph (padded to its pow2),
+    as the refresh runs them: each entity row of the bin against the same
+    entity's row of the whole graph, with the dense products as
+    ``torch.matmul`` and as ``core.layers.row_stable_matmul``.  Returns
+    ``{mm: (rows that differ, rows, max |d|)}``."""
+    from repro_torch.core import lnn_stage1, pad_graph
+    from repro_torch.core.layers import row_stable_matmul
+
+    def pow2(n):
+        b = 64
+        while b < n:
+            b *= 2
+        return b
+
+    part = ingester.partitioner
+    picked, nodes = [], 0
+    for c in sorted({part.community_of(e) for e in part.assignment()}):
+        if picked and nodes + ingester.community_node_count(c) > 2048:
+            break
+        picked.append(c)
+        nodes += ingester.community_node_count(c)
+    sub, whole = ingester.materialize_communities(picked), ingester.materialize()
+    g_sub = pad_graph(sub.coo, num_nodes=pow2(sub.coo.num_nodes), max_deg=32).to(dev)
+    g_whole = pad_graph(whole.coo, num_nodes=pow2(whole.coo.num_nodes), max_deg=32).to(dev)
+    rows = [(i, whole.entity_snap_ids[pair]) for pair, i in sub.entity_snap_ids.items()]
+    out = {}
+    for name, mm in (("torch.matmul", torch.matmul), ("row_stable_matmul", row_stable_matmul)):
+        with torch.no_grad():
+            h_sub = lnn_stage1(params, cfg, g_sub, mm=mm).cpu().numpy()
+            h_whole = lnn_stage1(params, cfg, g_whole, mm=mm).cpu().numpy()
+        d = np.abs(h_sub[[i for i, _ in rows]] - h_whole[[j for _, j in rows]]).max(-1)
+        out[name] = (int((d > 0).sum()), len(rows), float(d.max()))
+    out["bin_nodes"], out["whole_nodes"] = g_sub.num_nodes, g_whole.num_nodes
+    return out
+
+
+def stream_kernel_cases(dev, graph, floor_ms: float) -> dict:
+    """The three kernels of the streaming path at its own shapes: ``csr_spmm``
+    (both entries) and ``edge_softmax`` on one full stage-1 bin of the
+    stream (``graph``, on the card), ``stage2_score`` at the B=2 bucket
+    (timed, with bounds, against the plain version; its rows against the
+    same rows in a B=16 launch, bit for bit) and, typed, at every bucket."""
+    from repro_torch.core import LNNConfig, lnn_init
+    from repro_torch.core.hetero import ENTITY_TYPE_NAMES
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.csr_spmm import csr_spmm_cuda, csr_spmm_etype_mean_cuda
+    from repro_torch.kernels.edge_softmax import edge_softmax_agg_cuda
+    from repro_torch.kernels.stage2_score import flatten_stage2_params
+
+    gen = torch.Generator().manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    n, deg, hdim = graph.num_nodes, graph.max_deg, 64
+    mask = (graph.nbr_mask * (graph.nbr_etype != 3)).contiguous()    # stage 1's slots
+    w_mean = mask / mask.sum(-1, keepdim=True).clamp_min(1.0)
+    nnz = int((w_mean != 0).sum())
+    shape = f"N={n} D={deg} H={hdim} float32 (streaming bin, {nnz} valid slots)"
+    h = randn(n, hdim)
+    cases = {}
+    rows_i = torch.arange(n, device=dev)[:, None].expand(n, deg)
+    keep = w_mean != 0
+    sparse = torch.sparse_coo_tensor(torch.stack([rows_i[keep], graph.nbr_idx.long()[keep]]),
+                                     w_mean[keep], (n, n)).coalesce().to_sparse_csr()
+    b_ms, b_by = bound(2 * n * hdim * 4 + 2 * n * deg * 4, 2 * nnz * hdim)
+    cases["csr_spmm"] = dict(
+        shape=shape, max_abs_err=compare(csr_spmm_cuda(h, graph.nbr_idx, w_mean),
+                                         ref.csr_spmm_ref(h, graph.nbr_idx, w_mean), "float32"),
+        ms=time_ms(lambda: csr_spmm_cuda(h, graph.nbr_idx, w_mean)),
+        plain_ms=time_ms(lambda: ref.csr_spmm_ref(h, graph.nbr_idx, w_mean)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: torch.sparse.mm(sparse, h)),
+        launch_floor_ms=floor_ms)
+    et = graph.nbr_etype
+    args_t = (h, graph.nbr_idx, mask, et)
+    valid = int(((mask != 0) & (et >= 0) & (et < 4)).sum())
+    b_ms, b_by = bound(3 * n * deg * 4 + n * hdim * 4 + 4 * n * hdim * 4, 2 * valid * hdim)
+    cases["csr_spmm_etype_mean"] = dict(
+        shape=f"N={n} D={deg} H={hdim} E=4 float32 (streaming bin)",
+        max_abs_err=compare(csr_spmm_etype_mean_cuda(*args_t, 4),
+                            ref.csr_spmm_etype_mean_ref(*args_t, 4), "float32"),
+        ms=time_ms(lambda: csr_spmm_etype_mean_cuda(*args_t, 4)),
+        plain_ms=time_ms(lambda: ref.csr_spmm_etype_mean_ref(*args_t, 4)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    z, s_src, s_dst = randn(n, hdim), randn(n), randn(n)
+    args = (z, s_src, s_dst, graph.nbr_idx, mask, (randn(n, deg) * 0.1).contiguous())
+    b_ms, b_by = bound(2 * n * hdim * 4 + 2 * n * 4 + 3 * n * deg * 4, nnz * (2 * hdim + 8))
+    cases["edge_softmax"] = dict(
+        shape=shape, max_abs_err=compare(edge_softmax_agg_cuda(*args),
+                                         ref.edge_softmax_agg_ref(*args), "float32"),
+        ms=time_ms(lambda: edge_softmax_agg_cuda(*args)),
+        plain_ms=time_ms(lambda: ref.edge_softmax_agg_ref(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, launch_floor_ms=floor_ms)
+
+    # stage2_score at the smallest bucket, lnn_fraud's widths, F=12
+    k, f, b = 8, 12, 2
+    cfg = LNNConfig(gnn_type="gcn", num_gnn_layers=3, hidden_dim=hdim, mlp_dims=(64, 32),
+                    feat_dim=f)
+    params = lnn_init(torch.Generator().manual_seed(7), cfg, device=dev)
+    flat = flatten_stage2_params(params, "gcn")
+    call, _ = stage2_launcher(flat, "gcn", False)
+    mask16 = (torch.rand(16, k, generator=gen) < 0.7).float()
+    mask16[1] = 0.0                                       # a cold-start row
+    mask16 = mask16.to(dev)
+    emb16 = (randn(16, k, hdim) * mask16[..., None]).contiguous()
+    feats16 = randn(16, f)
+    emb, msk, feats = emb16[:b].contiguous(), mask16[:b].contiguous(), feats16[:b].contiguous()
+    out = call(emb, msk, feats, None)
+    wbytes = sum(x.numel() * 4 for x in flat)
+    dims = (hdim + f, 64, 32, 1)
+    per_row = f * hdim + 2 * hdim * hdim + sum(a * c for a, c in zip(dims, dims[1:]))
+    per_row += 2 * hdim * hdim + k * hdim
+    b_ms, b_by = bound(4 * (b * k * hdim + b * k + b * f + b) + wbytes, 2 * b * per_row)
+    same = torch.equal(call(emb16, mask16, feats16, None)[:b], out)
+    cases["stage2_score"] = dict(
+        shape=f"gcn untyped B={b} K={k} H={hdim} F={f}",
+        max_abs_err=compare(out, ref.stage2_score_ref(emb, msk, feats, flat, "gcn"), "float32"),
+        ms=time_ms(lambda: call(emb, msk, feats, None)),
+        plain_ms=time_ms(lambda: ref.stage2_score_ref(emb, msk, feats, flat, "gcn")),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, launch_floor_ms=floor_ms,
+        same_bits_as_b16=same)
+    if not same:
+        raise AssertionError("stage2_score: B=2 rows differ from the same rows at B=16")
+
+    # typed GAT, the attack stream's model, at every bucket, with untagged slots
+    cfg_t = LNNConfig(gnn_type="gat", num_gnn_layers=3, hidden_dim=hdim, mlp_dims=(64, 32),
+                      feat_dim=f, entity_types=ENTITY_TYPE_NAMES)
+    params_t = lnn_init(torch.Generator().manual_seed(8), cfg_t, device=dev)
+    flat_t = flatten_stage2_params(params_t, "gat")
+    call_t, _ = stage2_launcher(flat_t, "gat", True)
+    typed_errs = {}
+    for bb in (2, 4, 8, 16):
+        st = torch.randint(-1, len(ENTITY_TYPE_NAMES), (bb, k), generator=gen,
+                           dtype=torch.int32)
+        st[0] = -1                                     # every slot untagged
+        st = st.to(dev)
+        args2 = (emb16[:bb].contiguous(), mask16[:bb].contiguous(), feats16[:bb].contiguous())
+        typed_errs[bb] = compare(call_t(*args2, st),
+                                 ref.stage2_score_ref(*args2, flat_t, "gat", st), "float32")
+    cases["stage2_score_typed"] = dict(shape=f"gat typed T=4 K={k} H={hdim} F={f}",
+                                       max_abs_err_by_bucket=typed_errs)
+    for name in ("csr_spmm", "csr_spmm_etype_mean", "edge_softmax", "stage2_score"):
+        c = cases[name]
+        print(f"stream {name:<19} {c['shape']:<44} max|d|={c['max_abs_err']:.2e} "
+              f"kernel {c['ms'] * 1e3:8.2f} us  plain {c['plain_ms'] * 1e3:8.2f} us  "
+              f"bound {c['bound_ms'] * 1e3:6.3f} us ({c['bound_by']})  floor "
+              f"{floor_ms * 1e3:5.2f} us"
+              + (f"  torch.sparse.mm {c['library_ms'] * 1e3:8.2f} us"
+                 if c["library_ms"] is not None else "")
+              + ("  B=16 rows: same bits" if name == "stage2_score" else ""))
+    print(f"stream stage2_score {cases['stage2_score_typed']['shape']}: max|d| by bucket "
+          + ", ".join(f"B={bb} {e:.2e}" for bb, e in typed_errs.items()))
+    return cases
+
+
+def stream_phase(dev) -> dict:
+    """The streaming engine (``repro_torch.stream``) at the fraud slice's world
+    as a stream: a full replay per GNN type with the launch counters zeroed
+    just before and read just after, where its time goes, then the
+    bit-identity and agreement checks on the stream's first events, the
+    typed attack stream, and the kernels at the stream's shapes."""
+    from repro_torch.core import ENTITY_TYPE_NAMES, LNNConfig, lnn_forward, lnn_init, pad_graph
+    from repro_torch.data import (AttackConfig, SynthConfig, generate_attack_stream,
+                                  generate_event_stream)
+    from repro_torch.kernels import _build
+    from repro_torch.params import from_numpy, to_numpy
+    from repro_torch.serve import host_sigmoid
+    from repro_torch.stream import EngineConfig, StreamingEngine
+
+    t_phase = time.perf_counter()
+    events, static, _ = generate_event_stream(
+        SynthConfig(num_users=3000, num_rings=50, feature_noise=0.8, seed=1),
+        rate_per_s=STREAM_RATE)
+    feat_dim = static.order_features.shape[1]
+    head = events[:STREAM_CHECK_EVENTS]
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: tiny.zero_())
+    launches = {name: 0 for name in _build.LAUNCHES}
+    rows, full_bin = [], {}
+    for gnn in ("gcn", "gat", "sage"):
+        cfg = LNNConfig(gnn_type=gnn, num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                        feat_dim=feat_dim, pos_weight=3.0)
+        params = lnn_init(torch.Generator().manual_seed(1), cfg, device=dev)
+        agg = "edge_softmax" if gnn == "gat" else "csr_spmm"
+
+        # ---- the full replay, counted and timed
+        eng = StreamingEngine(params, cfg, EngineConfig())
+        eng.warmup()
+        t_ingest, t_refresh, t_stage1, t_lookup, t_stage2 = [], [], [], [], []
+        _timed(eng.ingester, "ingest", t_ingest)
+        _timed(eng.refresher, "on_windows_closed", t_refresh)
+        _timed(eng.store, "lookup_batch_versioned", t_lookup)
+        _timed(eng.pool.workers[0].scorer, "_score", t_stage2)
+        run_stage1 = eng.refresher._run_stage1
+
+        def stage1(pgs, *args, _run=run_stage1):
+            if "graph" not in full_bin:
+                full_bin.update(graph=next((pg for pg in pgs if pg.num_nodes == 4096), None))
+                if full_bin["graph"] is None:
+                    del full_bin["graph"]
+            t0 = time.perf_counter()
+            try:
+                return _run(pgs, *args)
+            finally:
+                t_stage1.append(time.perf_counter() - t0)
+
+        eng.refresher._run_stage1 = stage1
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rep = eng.replay(events, warmup=False)
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        summary = rep.summary()
+        st = eng.refresher.stats
+        if len(rep.results) != len(events):
+            raise AssertionError(f"stream {gnn}: {len(rep.results)} results for "
+                                 f"{len(events)} events")
+        scores = np.asarray([r.score for r in rep.results])
+        if not (np.all(np.isfinite(scores)) and np.all((scores >= 0) & (scores <= 1))):
+            raise AssertionError(f"stream {gnn}: scores not finite probabilities")
+        for name in ("stage2_score", agg):
+            if counts[name] == 0:
+                raise AssertionError(f"stream {gnn}: kernel {name} was never launched")
+        if counts["stage2_score"] != summary["flushes"]:
+            raise AssertionError(f"stream {gnn}: stage2_score launched {counts['stage2_score']} "
+                                 f"times for {summary['flushes']} flushes")
+        per_call = cfg.num_gnn_layers - 1
+        if counts[agg] != st["stage1_launches"] * per_call:
+            raise AssertionError(f"stream {gnn}: {agg} launched {counts[agg]} times for "
+                                 f"{st['stage1_launches']} stage-1 calls x {per_call}")
+        for name, c in counts.items():
+            launches[name] += c
+        pct = rep.percentiles_ms()
+        row = dict(
+            gnn=gnn, events=len(events), wall_s=wall, events_per_s=len(events) / wall,
+            latency_ms=pct, mean_service_ms=summary["mean_service_ms"],
+            flushes=summary["flushes"], size_flushes=summary["size_flushes"],
+            deadline_flushes=summary["deadline_flushes"], mean_batch=summary["mean_batch"],
+            refreshes=st["refreshes"], stage1_launches=st["stage1_launches"],
+            nodes_padded=st["nodes_padded"], communities_refreshed=st["communities_refreshed"],
+            refresher_s=st["seconds"], entities_written=st["entities_written"],
+            store_size=len(eng.store), store_misses=eng.store.stats["misses"],
+            staleness=rep.staleness_summary(), launches=counts,
+            ingest_s=float(np.sum(t_ingest)), refresh_s=float(np.sum(t_refresh)),
+            stage1_calls_s=float(np.sum(t_stage1)), kv_lookup_s=float(np.sum(t_lookup)),
+            stage2_call_s=float(np.sum(t_stage2)),
+            kv_lookup_ms_median=float(np.median(t_lookup)) * 1e3,
+            stage2_call_ms_median=float(np.median(t_stage2)) * 1e3)
+        row["other_s"] = wall - sum(row[k] for k in ("ingest_s", "refresh_s", "kv_lookup_s",
+                                                     "stage2_call_s"))
+        print(f"stream {gnn}: {len(events)} events in {wall:.3f} s ({row['events_per_s']:.1f} "
+              f"events/s, wall), latency p50 {pct['p50']:.3f} p95 {pct['p95']:.3f} p99 "
+              f"{pct['p99']:.3f} ms (virtual queue wait + measured service), service mean "
+              f"{row['mean_service_ms']:.3f} ms, {row['flushes']} flushes ({row['size_flushes']} "
+              f"size / {row['deadline_flushes']} deadline), mean batch {row['mean_batch']:.2f}; "
+              f"{row['refreshes']} refreshes, {row['stage1_launches']} stage-1 calls, "
+              f"{row['nodes_padded']} nodes padded, refresher {row['refresher_s']:.3f} s; store "
+              f"{row['store_size']} entries, {row['store_misses']} misses; staleness "
+              f"{row['staleness']}; launches {counts}")
+        print(f"stream {gnn} time: ingest {row['ingest_s']:.3f} s, refresh {row['refresh_s']:.3f} "
+              f"s (stage-1 calls {row['stage1_calls_s']:.3f} s), KV lookup {row['kv_lookup_s']:.3f}"
+              f" s ({row['kv_lookup_ms_median']:.3f} ms median a flush), stage-2 call "
+              f"{row['stage2_call_s']:.3f} s ({row['stage2_call_ms_median']:.3f} ms median a "
+              f"flush), other {row['other_s']:.3f} s")
+
+        # ---- the ladder on the stream's first events
+        base = StreamingEngine(params, cfg, EngineConfig())
+        got = {}
+        with torch.no_grad():
+            wall_p, busy, top, n_kernels = profiled(lambda: got.update(rep=base.replay(head)))
+        rep1 = got["rep"]
+        s1, c1 = rep1.scores_by_order(), _store_contents(base.store)
+        eng4 = StreamingEngine(params, cfg, EngineConfig(num_workers=4))
+        rep4 = eng4.replay(head)
+        served = sum(1 for w in rep4.summary()["workers"] if w["requests"] > 0)
+        if rep4.scores_by_order() != s1 or served < 2:
+            raise AssertionError(f"stream {gnn}: N=4 scores differ from N=1 "
+                                 f"({served} workers served)")
+        whole = StreamingEngine(params, cfg, EngineConfig(community_local=False))
+        rep_w = whole.replay(head)
+        c_w = _store_contents(whole.store)
+        if c_w != c1 or rep_w.scores_by_order() != s1:
+            diff = [k for k in c1 if c_w.get(k) != c1[k]]
+            worst = max((float(np.abs(np.frombuffer(c1[k][0], np.float32)
+                                      - np.frombuffer(c_w[k][0], np.float32)).max())
+                         for k in diff if k in c_w), default=float("nan"))
+            raise AssertionError(f"stream {gnn}: community-local and whole-graph refresh "
+                                 f"differ in {len(diff)} of {len(c1)} KV entries (max|d| "
+                                 f"{worst:.3e})")
+        asy = StreamingEngine(params, cfg, EngineConfig(async_refresh=True))
+        asy.warmup()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        rep_a = asy.replay(head, warmup=False)
+        asy.close()
+        a_counts = dict(_build.LAUNCHES)
+        a_st = asy.refresher.stats
+        if (a_counts["stage2_score"] != rep_a.summary()["flushes"]
+                or a_counts[agg] != a_st["stage1_launches"] * per_call):
+            raise AssertionError(f"stream {gnn} async: launches {a_counts} for "
+                                 f"{rep_a.summary()['flushes']} flushes and "
+                                 f"{a_st['stage1_launches']} stage-1 calls")
+        if _store_contents(asy.store) != c1:
+            raise AssertionError(f"stream {gnn}: the async refresh drained to other bytes")
+        pg = pad_graph(base.ingester.materialize().coo, max_deg=32).to(dev)
+        with torch.no_grad():
+            full = host_sigmoid(lnn_forward(params, cfg, pg).cpu().numpy())
+        mono = max(abs(s1[ev.order_id] - float(full[i])) for i, ev in enumerate(head))
+        if not (mono <= EQUIV_ATOL and rep1.staleness_summary()["max"] == 0
+                and base.store.stats["misses"] == 0):
+            raise AssertionError(f"stream {gnn}: replay against the monolithic forward "
+                                 f"{mono:.3e} (limit {EQUIV_ATOL}), staleness "
+                                 f"{rep1.staleness_summary()}, misses "
+                                 f"{base.store.stats['misses']}")
+        scope = stage1_scope_rows(params, cfg, base.ingester, dev)
+        if scope["row_stable_matmul"][0]:
+            raise AssertionError(f"stream {gnn}: stage-1 rows of a bin differ from the whole "
+                                 f"graph's: {scope}")
+        host = StreamingEngine(from_numpy(to_numpy(params), "cpu"), cfg, EngineConfig(),
+                               device="cpu")
+        score_gap, store_gap = _host_gap(s1, host.replay(head).scores_by_order(), base.store,
+                                         host.store, f"stream {gnn}")
+        row.update(check_events=len(head), workers_served=served, kv_entries=len(c1),
+                   stage1_scope_rows=scope,
+                   monolithic_gap=mono, host_score_gap=score_gap, host_store_gap=store_gap,
+                   async_launches=a_counts, head_profiled_s=wall_p, head_busy_share=busy,
+                   head_top=top, head_kernels=n_kernels)
+        rows.append(row)
+        print(f"stream {gnn} checks on the first {len(head)} events: N=4 == N=1 bit for bit "
+              f"({served} workers served); community-local == whole-graph: {len(c1)} KV "
+              f"entries, bytes and stamps, and every score; async == sync store bytes, "
+              f"launches exact ({a_counts['stage2_score']} stage2_score, {a_counts[agg]} {agg}); "
+              f"monolithic forward max|d| {mono:.2e} (limit {EQUIV_ATOL}); host plain path: "
+              f"scores max|d| {score_gap:.2e} (limit {STREAM_SCORE_TOL}), KV max|d| "
+              f"{store_gap:.2e} (limit {STREAM_STORE_TOL}); card busy {busy:.1%} of "
+              f"{wall_p:.3f} s ({n_kernels} kernels, profiled)")
+        print(f"stream {gnn} stage-1 rows, a bin of {scope['bin_nodes']} nodes against the "
+              f"whole graph of {scope['whole_nodes']}: "
+              + "; ".join(f"{mm} {scope[mm][0]} of {scope[mm][1]} entity rows differ (max|d| "
+                          f"{scope[mm][2]:.2e})" for mm in ("torch.matmul", "row_stable_matmul")))
+        print(f"stream {gnn} top device time over the {len(head)} events: "
+              + "; ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+
+    # ---- the typed attack stream, once
+    ev_a, _ = generate_attack_stream(AttackConfig(), rate_per_s=STREAM_RATE)
+    cfg_t = LNNConfig(gnn_type="gat", num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                      feat_dim=feat_dim, pos_weight=3.0, entity_types=ENTITY_TYPE_NAMES)
+    params_t = lnn_init(torch.Generator().manual_seed(2), cfg_t, device=dev)
+    typed1 = StreamingEngine(params_t, cfg_t, EngineConfig())
+    s_t1 = typed1.replay(ev_a).scores_by_order()
+    rep_t4 = StreamingEngine(params_t, cfg_t, EngineConfig(num_workers=4)).replay(ev_a)
+    if rep_t4.scores_by_order() != s_t1:
+        raise AssertionError("stream typed gat: N=4 scores differ from N=1")
+    host_t = StreamingEngine(from_numpy(to_numpy(params_t), "cpu"), cfg_t, EngineConfig(),
+                             device="cpu")
+    t_gap = _host_gap(s_t1, host_t.replay(ev_a).scores_by_order(), typed1.store,
+                      host_t.store, "stream typed gat")
+    typed = dict(events=len(ev_a), kv_entries=len(typed1.store),
+                 workers_served=sum(1 for w in rep_t4.summary()["workers"]
+                                    if w["requests"] > 0),
+                 host_score_gap=t_gap[0], host_store_gap=t_gap[1])
+    print(f"stream typed gat (attack stream, {len(ev_a)} events, T=4): N=4 == N=1 bit for bit "
+          f"({typed['workers_served']} workers served); host plain path: scores max|d| "
+          f"{t_gap[0]:.2e}, KV max|d| {t_gap[1]:.2e} ({typed['kv_entries']} entries)")
+
+    if "graph" not in full_bin:
+        raise AssertionError("stream: no stage-1 bin of 4096 nodes in the replay")
+    cases = stream_kernel_cases(dev, full_bin["graph"].to(dev), floor_ms)
+    seconds = time.perf_counter() - t_phase
+    print(f"stream phase: {seconds:.1f} s")
+    return dict(rows=rows, typed=typed, kernel_cases=cases, launches=launches,
+                launch_floor_ms=floor_ms, seconds=seconds, rate_per_s=STREAM_RATE)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -1266,6 +1706,9 @@ def main() -> int:
     if "--zoo-kernels" in sys.argv[1:]:
         zoo_kernel_checks(dev)
         return 0
+    if "--stream" in sys.argv[1:]:
+        stream_phase(dev)
+        return 0
 
     # ----------------------------------------------------------------- data
     t0 = time.perf_counter()
@@ -1287,7 +1730,7 @@ def main() -> int:
         training(dev, batches, split, feat_dim)
         return 0
 
-    # ------------------------------------ 2. kernels against their plain versions
+    # ------------------------------------ 2, 5. kernels against their plain versions
     results = fraud_kernel_checks(dev, batches, feat_dim)
     results.update(zoo_kernel_checks(dev))
 
@@ -1383,19 +1826,25 @@ def main() -> int:
               "community refresh)")
     print("slice: " + json.dumps(slice_rows))
 
-    # ---------------------------------------------------------- 7. training
+    # --------------------------------------------------------- 4. streaming
+    stream = stream_phase(dev)
+    for name, c in stream["launches"].items():
+        launches[name] += c
+    print("stream: " + json.dumps(stream))
+
+    # ---------------------------------------------------------- 8. training
     results.update(training(dev, batches, split, feat_dim))
     for name, c in results["table3"]["launches"].items():
         launches[name] += c
 
-    # ------------------------------------------------- 5, 6. the zoo slice
+    # ------------------------------------------------- 6, 7. the zoo slice
     zoo = zoo_slice(dev)
     for name in ("ssd_scan", "flash_attention", "gqa_decode"):
         launches[name] += zoo["launches"][name]
     zoo["f32_agreement_of_scale"] = zoo_agreement(dev)
     print("zoo: " + json.dumps(zoo))
 
-    # -------------------------------------------------------- 4. kernel line
+    # -------------------------------------------------------- 9. kernel line
     def pick(name, shape_prefix, shape_suffix=""):
         return next(c for c in results[name] if c["shape"].startswith(shape_prefix)
                     and c["shape"].endswith(shape_suffix))
@@ -1463,6 +1912,18 @@ def main() -> int:
     per_type = results["csr_spmm_bwd"][1]
     kernels[-2]["etype_mean"] = {k: per_type[k] for k in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    # the stream phase: its launches (three full replays) and its own shapes
+    case_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        entry["stream_launches"] = stream["launches"][entry["name"]]
+        case = stream["kernel_cases"].get(entry["name"])
+        if case is not None:
+            entry["stream_case"] = {k: case[k] for k in case_keys}
+    by_name = {entry["name"]: entry for entry in kernels}
+    by_name["csr_spmm"]["stream_case"]["etype_mean"] = {
+        k: stream["kernel_cases"]["csr_spmm_etype_mean"][k] for k in case_keys}
+    by_name["stage2_score"]["stream_case"]["same_bits_as_b16"] = \
+        stream["kernel_cases"]["stage2_score"]["same_bits_as_b16"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 All layers consume the padded in-neighbor layout from ``core.graph`` (as
 torch tensors, see ``PaddedGraph.to``) and are plain functions
-``apply(params, h, graph) -> h'`` over nested dicts of tensors.  The
+``apply(params, h, graph, mm=torch.matmul) -> h'`` over nested dicts of
+tensors; ``mm`` takes every dense product over the node rows.  The
 neighbor aggregation is the paper's hot loop; it goes through
 ``kernels.ops.csr_spmm`` / ``kernels.ops.edge_softmax_agg``, which launch the
 CUDA kernels for CUDA tensors and run the plain versions for CPU tensors.
@@ -48,6 +49,38 @@ class _Lookup(torch.autograd.Function):
         return dtable.reshape((ctx.rows,) + grad.shape[codes.dim():]), None
 
 
+#: rows of every dense product :func:`row_stable_matmul` issues on the card:
+#: the streaming refresh's largest bin (``EngineConfig.community_size``)
+ROW_CHUNK = 4096
+
+
+def row_stable_matmul(x, w):
+    """``x @ w`` over node rows (``x`` [N, K]; ``w`` [K, O] or [K]) whose
+    row bits do not depend on N.
+
+    cuBLAS picks its kernel, and with it the order of a row's sums, by the
+    product's shape: on the H100 the rows of ``x[:N] @ w`` change in the
+    last bits between N = 64 and N = 65,536.  So on the card the product
+    runs in chunks of exactly ``ROW_CHUNK`` rows, the last one padded with
+    zero rows: one shape, one kernel, whatever N is.  A node then gets the
+    same stage-1 embedding from a community's graph as from the whole graph
+    (the streaming refresh's two scopes).  On the CPU it is ``x @ w``,
+    whose rows already keep their bits from N = 4 on."""
+    if x.device.type != "cuda":
+        return x @ w
+    return chunked_matmul(x, w, ROW_CHUNK)
+
+
+def chunked_matmul(x, w, rows: int):
+    """``x @ w`` as products of exactly ``rows`` rows of ``x``, the last
+    chunk padded with zero rows (:func:`row_stable_matmul` on the card)."""
+    n = x.shape[0]
+    pad = -n % rows
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return torch.cat([x[i:i + rows] @ w for i in range(0, n + pad, rows)])[:n]
+
+
 def lookup(table, codes):
     """``table[codes]`` for integer ``codes`` in [0, len(table)): rows of an
     embedding table (or entries of a vector), with a gradient that is a
@@ -87,10 +120,13 @@ def gcn_init(rng, in_dim: int, out_dim: int):
     }
 
 
-def gcn_apply(params, h, graph: PaddedGraph):
+def gcn_apply(params, h, graph: PaddedGraph, mm=torch.matmul):
     agg = per_etype_mean(h, graph)                       # [E, N, in]
-    out = h @ params["w_self"]
-    out = out + torch.einsum("enh,eho->no", agg, params["w_nbr"])
+    w_nbr = params["w_nbr"]                              # [E, in, out]
+    out = mm(h, params["w_self"])
+    # sum over (e, h) of agg[e, n, h] * w_nbr[e, h, o], as one product
+    out = out + mm(agg.permute(1, 0, 2).reshape(h.shape[0], -1),
+                   w_nbr.reshape(-1, w_nbr.shape[-1]))
     return torch.relu(out + params["b"])
 
 
@@ -109,13 +145,13 @@ def gat_init(rng, in_dim: int, out_dim: int):
     }
 
 
-def gat_apply(params, h, graph: PaddedGraph):
-    z = h @ params["w"]                                  # [N, H]
+def gat_apply(params, h, graph: PaddedGraph, mm=torch.matmul):
+    z = mm(h, params["w"])                               # [N, H]
     agg = ops.edge_softmax_agg(
-        z, z @ params["a_src"], z @ params["a_dst"], graph.nbr_idx,
+        z, mm(z, params["a_src"]), mm(z, params["a_dst"]), graph.nbr_idx,
         graph.nbr_mask, lookup(params["a_et"], graph.nbr_etype), graph.rev,
     )
-    out = agg + h @ params["w_self"]
+    out = agg + mm(h, params["w_self"])
     return torch.relu(out + params["b"])
 
 
@@ -131,11 +167,11 @@ def sage_init(rng, in_dim: int, out_dim: int):
     }
 
 
-def sage_apply(params, h, graph: PaddedGraph):
+def sage_apply(params, h, graph: PaddedGraph, mm=torch.matmul):
     w = graph.nbr_mask
     cnt = w.sum(-1, keepdim=True).clamp_min(1.0)
     agg = weighted_gather_sum(h, graph.nbr_idx, w / cnt, graph.rev)
-    out = h @ params["w_self"] + agg @ params["w_nbr"]
+    out = mm(h, params["w_self"]) + mm(agg, params["w_nbr"])
     return torch.relu(out + params["b"])
 
 

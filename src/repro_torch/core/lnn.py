@@ -118,19 +118,21 @@ def _apply_towers(params, x, codes):
 # Stage 1 — batch layer
 # ---------------------------------------------------------------------------
 
-def lnn_stage1(params, cfg: LNNConfig, graph: PaddedGraph):
+def lnn_stage1(params, cfg: LNNConfig, graph: PaddedGraph, mm=torch.matmul):
     """Input proj + first L-1 GNN layers.  Returns hidden states [N, H].
 
     The final-hop ``entity_{t-e} -> order_t`` edges are *masked out* here:
     they are consumed only by the last (speed-layer) GNN layer, so an
     order's stage-1 state depends only on its own raw features (see
-    ``lnn_order_tower``).
+    ``lnn_order_tower``).  ``mm`` takes every dense product over the node
+    rows: ``core.layers.row_stable_matmul`` gives a node the same bits at
+    any graph size (the streaming refresh passes it).
     """
     _, apply_fn = LAYER_REGISTRY[cfg.gnn_type]
     stage1_graph = graph._replace(
         nbr_mask=graph.nbr_mask * (graph.nbr_etype != EdgeType.ENTITY_TO_ORDER)
     )
-    h = graph.features @ params["input"]["w"] + params["input"]["b"]
+    h = mm(graph.features, params["input"]["w"]) + params["input"]["b"]
     h = h + lookup(params["type_emb"], graph.node_type)
     if "typed" in params and graph.tower is not None:
         # typed entity-snapshot vertices additionally receive their
@@ -139,7 +141,7 @@ def lnn_stage1(params, cfg: LNNConfig, graph: PaddedGraph):
         h = h + (graph.tower >= 0)[:, None] * lookup(emb, graph.tower.clamp_min(0))
     h = torch.relu(h)
     for layer in params["gnn"]:
-        h = apply_fn(layer, h, stage1_graph)
+        h = apply_fn(layer, h, stage1_graph, mm)
     return h
 
 

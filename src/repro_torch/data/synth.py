@@ -241,3 +241,27 @@ def generate_transactions(cfg: SynthConfig) -> tuple[StaticGraph, np.ndarray]:
     )
     return g, np.asarray(entity_type, np.int32)
 
+
+def generate_event_stream(
+    cfg: SynthConfig,
+    rate_per_s: float = 200.0,
+    standardize: bool = True,
+):
+    """Synthetic checkout *stream* for the serving engine: the same fraud
+    world as ``generate_transactions``, replayed in event-time order with
+    Poisson arrivals.
+
+    Features are z-scored with train-split statistics (time-based split, no
+    leakage) when ``standardize`` — what a production feature service would
+    emit.  Returns (events, static_graph, split).
+    """
+    from repro_torch.data.pipeline import make_split_masks, standardize_features
+    from repro_torch.stream.events import events_from_static
+
+    g, _ = generate_transactions(cfg)
+    split = make_split_masks(g.order_snapshot)
+    if standardize:
+        feats, _ = standardize_features(g.order_features, split == 0)
+        g.order_features = feats
+    events = events_from_static(g, rate_per_s=rate_per_s, seed=cfg.seed)
+    return events, g, split

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -31,15 +32,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches of each kernel, one per successful launch by its wrapper; a run
-#: sets them to 0 and reads them to show which kernels a path went through
+#: sets them to 0 and reads them to show which kernels a path went through.
+#: Wrappers may launch from several host threads (the streaming engine's
+#: refresh thread), so every update holds ``_LAUNCH_LOCK``
 LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0,
             "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0,
             "csr_spmm_bwd": 0, "edge_softmax_bwd": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()       # one build, however many threads ask first
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 @dataclass(frozen=True)
@@ -130,9 +138,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
 
 
-@functools.cache
 def load_library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library; cached per process.
+    A thread that asks while another builds waits for that build."""
+    with _LOAD_LOCK:
+        return _load_library()
+
+
+@functools.cache
+def _load_library() -> KernelLibrary:
     sources = sorted(CSRC.glob("*.cu"))
     out = BUILD_DIR / f"librepro_torch_{_digest(sources)}.so"
     t0 = time.perf_counter()
@@ -148,7 +162,8 @@ def check_launch(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error (``cudaGetLastError``)."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -163,6 +163,17 @@ def edge_softmax_agg_bwd_ref(dout, z, s_src, s_dst, nbr_idx, nbr_mask, etype_bia
     return dz, ds_src, dlogit.sum(-1), dlogit
 
 
+def _mm(x, w):
+    """``x @ w``, where a one-column ``w`` [K, 1] is taken as an elementwise
+    product and a sum over K: each row's bits then do not depend on how many
+    rows come with it (the CPU's matrix-vector path rounds rows differently
+    at two or three rows than at more, and stage 2 runs at micro-batches of
+    two)."""
+    if w.shape[-1] == 1:
+        return (x * w[:, 0]).sum(-1, keepdim=True)
+    return x @ w
+
+
 def stage2_score_ref(entity_emb, emb_mask, order_feats, flat,
                      gnn_type: str = "gcn", slot_type=None):
     """The fused stage-2 computation, unfused, over the flattened weights
@@ -179,31 +190,31 @@ def stage2_score_ref(entity_emb, emb_mask, order_feats, flat,
         # every type's tower reads the original embedding, not a chained one
         emb0 = emb
         for t in range(p["typed_w"].shape[0]):
-            tr = torch.relu(emb0 @ p["typed_w"][t] + p["typed_b"][t])
+            tr = torch.relu(_mm(emb0, p["typed_w"][t]) + p["typed_b"][t])
             emb = torch.where((slot_type == t)[..., None], tr, emb)
 
-    h = torch.relu(feats @ p["w_in"] + p["b_in"] + p["type_row"])
+    h = torch.relu(_mm(feats, p["w_in"]) + p["b_in"] + p["type_row"])
     for li in range(p["tower_w"].shape[0]):
-        h = torch.relu(h @ p["tower_w"][li] + p["tower_b"][li])
+        h = torch.relu(_mm(h, p["tower_w"][li]) + p["tower_b"][li])
 
     if gnn_type in ("gcn", "sage"):
         cnt = mask.sum(-1, keepdim=True).clamp_min(1.0)
         agg = torch.einsum("bkh,bk->bh", emb, mask / cnt)
-        g = h @ p["w_self"] + agg @ p["w_nbr"]
+        g = _mm(h, p["w_self"]) + _mm(agg, p["w_nbr"])
     else:
         w = p["w_gat"]
-        z = emb @ w
-        s_dst = (h @ w) @ p["a_dst"]                              # [B, 1]
-        s_src = (z @ p["a_src"])[..., 0]                          # [B, K]
+        z = _mm(emb, w)
+        s_dst = _mm(_mm(h, w), p["a_dst"])                        # [B, 1]
+        s_src = _mm(z, p["a_src"])[..., 0]                         # [B, K]
         logits = F.leaky_relu(s_src + s_dst + p["a_et"][0, 0], 0.2)
         logits = torch.where(mask > 0, logits, torch.full_like(logits, -1e9))
         attn = torch.softmax(logits, dim=-1) * mask
-        g = torch.einsum("bkh,bk->bh", z, attn) + h @ p["w_self"]
+        g = torch.einsum("bkh,bk->bh", z, attn) + _mm(h, p["w_self"])
     g = torch.relu(g + p["b_last"])
 
-    y = g @ p["w0g"] + feats @ p["w0f"] + p["b0"]
+    y = _mm(g, p["w0g"]) + _mm(feats, p["w0f"]) + p["b0"]
     for w, b in p["mlp"]:
-        y = torch.relu(y) @ w + b
+        y = _mm(torch.relu(y), w) + b
     return y[:, 0]
 
 

@@ -1,1 +1,1 @@
-"""Serving-API datatypes (``types.ScoreRequest``)."""
+"""Serving-API datatypes (``types.ScoreRequest``, ``types.ScoreResponse``)."""

@@ -1,7 +1,8 @@
-"""Typed serving-API request — ``repro_torch.service.types``.
+"""Typed serving-API request and response — ``repro_torch.service.types``.
 
-Only :class:`ScoreRequest` is ported so far: it is what the speed layer
-scores.  A dependency leaf (numpy only).
+:class:`ScoreRequest` is what the speed layer scores and
+:class:`ScoreResponse` what the streaming engine returns for it (the
+streaming path calls it ``ScoredResult``).  A dependency leaf (numpy only).
 """
 from __future__ import annotations
 
@@ -35,3 +36,24 @@ class ScoreRequest:
         return cls(features=np.asarray(r["features"], np.float32),
                    entity_keys=list(r["entity_keys"]),
                    arrival=float(r.get("arrival", 0.0)))
+
+
+@dataclass
+class ScoreResponse:
+    """One scored (or shed) checkout.
+
+    ``model_version`` is the parameter version whose stage-2 pack scored the
+    flush (hot-swap observability); ``admitted=False`` marks a request an
+    admission controller shed — its ``score`` is NaN and it never entered a
+    micro-batch.
+    """
+
+    request: ScoreRequest
+    score: float
+    staleness: int = -1           # max snapshot-staleness over served slots
+    queued_s: float = 0.0         # arrival -> flush trigger (virtual)
+    service_s: float = 0.0        # batch compute wall time (shared)
+    batch_size: int = 1           # real requests in the flush
+    worker: int = 0               # speed-layer worker that scored the flush
+    model_version: int = 0        # param version whose pack scored it
+    admitted: bool = True         # False = shed by admission control

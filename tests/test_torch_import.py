@@ -8,6 +8,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +31,8 @@ from repro_torch.launch import serve as zoo_serve
 from repro_torch.models import init_cache, init_params
 from repro_torch.params import from_numpy
 from repro_torch.serve import BatchLayer, KVStore, SpeedLayer
+from repro_torch.stream import (EngineConfig, RefreshDriver, Stage2Scorer, StreamingEngine,
+                                StreamIngester, WorkerPool)
 from repro_torch.train.loop import evaluate_lnn, train_lnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,7 +81,9 @@ def _tiny_graph():
 @pytest.mark.parametrize("entry", ["lnn_init", "from_numpy", "BatchLayer",
                                    "SpeedLayer", "PaddedGraph.to", "zoo init_params",
                                    "zoo init_cache", "zoo serve", "zoo serve main",
-                                   "train_lnn", "evaluate_lnn", "mlp_init", "train_mlp"])
+                                   "train_lnn", "evaluate_lnn", "mlp_init", "train_mlp",
+                                   "StreamingEngine", "RefreshDriver", "Stage2Scorer",
+                                   "WorkerPool"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     zoo = get_config("zamba2-1.2b").reduced()
@@ -97,6 +102,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
         "mlp_init": lambda: mlp_init(torch.Generator().manual_seed(0), 3, MLPConfig()),
         "train_mlp": lambda: train_mlp(np.zeros((4, 3)), np.zeros(4), np.zeros((2, 3)),
                                        np.zeros(2)),
+        "StreamingEngine": lambda: StreamingEngine({}, cfg),
+        "RefreshDriver": lambda: RefreshDriver({}, cfg, KVStore(4), StreamIngester(2)),
+        "Stage2Scorer": lambda: Stage2Scorer({}, cfg, KVStore(4), 8),
+        "WorkerPool": lambda: WorkerPool({}, cfg, KVStore(4)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -109,6 +118,99 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
     g = _tiny_graph().to("cpu")
     assert g.nbr_idx.dtype == torch.int32 and g.tower is None
     assert BatchLayer(params, cfg, KVStore(4), device="cpu").device.type == "cpu"
+    eng = StreamingEngine(params, cfg, EngineConfig(num_workers=2), device="cpu")
+    assert eng.device.type == eng.pool.device.type == eng.refresher.device.type == "cpu"
+    assert all(w.scorer.device.type == "cpu" for w in eng.pool.workers)
+    assert RefreshDriver(params, cfg, KVStore(4), StreamIngester(2),
+                         device="cpu").device.type == "cpu"
+    sc = Stage2Scorer(params, cfg, KVStore(4), 8, device="cpu")
+    probs, stale, version = sc(np.zeros((2, 2), np.float32), [[], []])
+    assert probs.shape == (2,) and version == 0 and (stale == -1).all()
+    assert WorkerPool(params, cfg, KVStore(4), device="cpu").device.type == "cpu"
+
+
+def test_streaming_refuses_what_comes_with_the_service_layer():
+    """The process backend and hybrid GNN -> GBDT models raise
+    ``NotImplementedError`` naming the queue item that brings them."""
+    cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
+    params = lnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="process.*queue 1 item 2"):
+        StreamingEngine(params, cfg, EngineConfig(backend="process"), device="cpu")
+
+    class Hybrid:                    # the reference HybridModel's surface
+        lnn_params = params
+        gbdt = None
+
+    with pytest.raises(NotImplementedError, match="hybrid.*queue 1 item 2"):
+        StreamingEngine(Hybrid(), cfg, device="cpu")
+    eng = StreamingEngine(params, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        eng.load_model(Hybrid())
+    with pytest.raises(ValueError, match="unknown workers backend"):
+        StreamingEngine(params, cfg, EngineConfig(backend="thread"), device="cpu")
+
+
+def test_launch_counter_is_exact_across_threads():
+    """8 threads count 10,000 launches each under a short switch interval:
+    the counter reads exactly 80,000."""
+    before = dict(_build.LAUNCHES)
+
+    def count():
+        for _ in range(10_000):
+            _build.check_launch(0, "ssd_scan")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _build.reset_launches()
+        threads = [threading.Thread(target=count) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert _build.LAUNCHES["ssd_scan"] == 80_000
+        assert sum(_build.LAUNCHES.values()) == 80_000
+    finally:
+        sys.setswitchinterval(interval)
+        _build.LAUNCHES.update(before)
+    with pytest.raises(RuntimeError, match="cudaError_t 2"):
+        _build.check_launch(2, "ssd_scan")
+    assert _build.LAUNCHES == before
+
+
+def test_first_load_builds_once_across_threads(monkeypatch, tmp_path):
+    """Threads that ask for the kernel library together build it once; the
+    others wait for that build and load its result."""
+    builds = []
+    started = threading.Event()
+
+    def fake_compile(sources, out):
+        builds.append(out)
+        started.set()
+        threading.Event().wait(0.2)          # a build takes a while
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_bytes(b"")
+        return "log"
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(_build, "_declare", lambda lib: None)
+    _build._load_library.cache_clear()
+    try:
+        libs = []
+        threads = [threading.Thread(target=lambda: libs.append(_build.load_library()))
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads) and started.is_set()
+        assert len(builds) == 1 and len(libs) == 8
+        assert len({id(lib) for lib in libs}) == 1 and libs[0].built
+    finally:
+        _build._load_library.cache_clear()
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
