@@ -40,19 +40,33 @@
    one and four workers; then the kernels at the stream's own shapes (one
    full stage-1 bin, N=4096 D=32; ``stage2_score`` at B=2, its rows against
    B=16 bit for bit, and typed at every bucket).
-5. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
+5. Serves the same stream through the facade,
+   ``repro_torch.service.FraudService``: for gcn, gat and sage the streaming
+   facade against a bare ``StreamingEngine`` (scores and KV bytes bit for
+   bit, exact launches, events/s of both, the card's busy share); for gcn
+   the batch facade against ``BatchLayer``/``SpeedLayer`` (bit for bit,
+   ``score_equivalence_check`` ≤ 1e-4), a hot swap to a
+   ``register_perturbed(0, 0.0)`` clone (bit for bit) and shadow scoring
+   (divergence 0 for the clone, a perturbed canary's alert); crash →
+   ``FraudService.restore`` → resume at four crash points over the first
+   2,000 events with a checkpoint and a hot swap in the feed (bit for bit,
+   with the checkpoint's seconds and bytes and the recovery's seconds);
+   then the hybrid GNN -> GBDT head on the typed attack stream (N=4 == N=1
+   bit for bit, its embedding against the host's plain path within 1e-5, a
+   WAL/checkpoint restore bit for bit).
+6. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
    ``gqa_decode``) against their plain versions at the zamba2-1.2b serving
    shapes and at ragged ones, f32 and bf16, timed beside their bounds and
    ``scaled_dot_product_attention`` as a yardstick.
-6. Serves zamba2-1.2b at full width and depth in bf16 through
+7. Serves zamba2-1.2b at full width and depth in bf16 through
    ``repro_torch.launch.serve.serve`` (random weights from a seed): prefill
    4 prompts of 512 tokens, decode 32 tokens, with the launch counters
    zeroed just before and read just after; then where the time of prefill
    and of a decode step goes (``torch.profiler``).
-7. In f32 at full width, the kernel path's logits (forward, prefill and 4
+8. In f32 at full width, the kernel path's logits (forward, prefill and 4
    decode steps) against the port's plain path on the host, and prefill ->
    decode consistency on the card and on the host.
-8. Training (``repro_torch.train``): the two backward kernels
+9. Training (``repro_torch.train``): the two backward kernels
    (``csr_spmm_bwd``, ``edge_softmax_bwd``) against their plain versions at
    the first community's stage-1 shapes (timed, with bounds, the launch
    floor and ``torch.sparse.mm``) and at ragged ones, each called twice for
@@ -63,20 +77,21 @@
    launch counters zeroed just before the training runs and read just
    after, ms per synchronized step, the card's busy share over one step and
    test ROC-AUC/AP beside the baselines'.
-9. Prints one JSON line with every kernel's numbers, then the result line.
+10. Prints one JSON line with every kernel's numbers, then the result line.
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
-(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 5 only,
+(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 6 only,
 ``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
-and 8, and ``--stream`` steps 1 and 4: a quick build, check and timing,
-with no result line.  Copied into an older tree, ``--fraud-kernels``
+and 9, ``--stream`` steps 1 and 4, and ``--service`` steps 1 and 5: a
+quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1665,6 +1680,453 @@ def stream_phase(dev) -> dict:
                 launch_floor_ms=floor_ms, seconds=seconds, rate_per_s=STREAM_RATE)
 
 
+SERVICE_HEAD = STREAM_CHECK_EVENTS   # the crash runs replay the stream's first events
+SERVICE_CHECKPOINT_AT = 500          # ... with a checkpoint after this event
+SERVICE_SWAP_AT = 1000               # ... and a hot swap after this one
+SERVICE_CRASH_POINTS = ("ingest.after", "flush.before_score", "refresh.before_puts",
+                        "checkpoint.mid")
+SHADOW_FRACTION = 0.1
+
+
+def _merge(merged: dict, responses) -> dict:
+    """Fold delivered responses into ``order_id -> (score, model_version)``;
+    a duplicate delivery must agree bit for bit (exactly once, as an
+    idempotent consumer sees it)."""
+    for r in responses:
+        if not r.admitted:
+            continue
+        oid, val = r.request.tag.order_id, (r.score, r.model_version)
+        if oid in merged and merged[oid] != val:
+            raise AssertionError(f"service: duplicate delivery disagrees for order {oid}: "
+                                 f"{merged[oid]} vs {val}")
+        merged[oid] = val
+    return merged
+
+
+def _drive(svc, events, start=0, *, swap=None, checkpoint_at=None, out=None, ckpt_log=None):
+    """Feed ``events[start:]`` through ``svc.submit`` and drain: ``swap =
+    (index, params, version)`` hot-swaps after ``events[index]``,
+    ``checkpoint_at`` writes a checkpoint after that event (its seconds
+    and path appended to ``ckpt_log``).  Responses land in ``out`` as they
+    are delivered."""
+    out = [] if out is None else out
+    for i in range(start, len(events)):
+        out.extend(svc.submit(events[i]))
+        if swap is not None and i == swap[0]:
+            svc.load_model(swap[1], version=swap[2])
+        if checkpoint_at is not None and i == checkpoint_at:
+            t0 = time.perf_counter()
+            path = svc.checkpoint()
+            if ckpt_log is not None:
+                ckpt_log.append((time.perf_counter() - t0, path))
+    out.extend(svc.drain())
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def service_phase(dev) -> dict:
+    """The serving facade (``repro_torch.service.FraudService``) on the
+    card, on the streaming cell's world: the streaming facade against a
+    bare engine for gcn, gat and sage (bit for bit, exact launches, events/s
+    of both, the card's busy share); the batch facade against
+    ``BatchLayer``/``SpeedLayer`` (bit for bit); a hot swap to a clone and
+    shadow scoring (divergence 0, a canary's alert); crash → restore →
+    resume at four crash points, bit for bit, with the checkpoint's and the
+    recovery's times; and the hybrid GNN -> GBDT head on the typed attack
+    stream (N=4 == N=1, the embedding against the host's plain path, a
+    WAL/checkpoint restore bit for bit)."""
+    import tempfile
+
+    import repro_torch.stream.workers as workers_mod
+    from repro_torch.core import ENTITY_TYPE_NAMES, LNNConfig, lnn_init, lnn_stage2_embed
+    from repro_torch.data import (AttackConfig, SynthConfig, build_communities,
+                                  generate_attack_stream, generate_event_stream,
+                                  generate_transactions, make_split_masks, standardize_features)
+    from repro_torch.kernels import _build
+    from repro_torch.models.hybrid import HybridModel, embed_rows, train_hybrid
+    from repro_torch.params import from_numpy, to_numpy
+    from repro_torch.serve import BatchLayer, KVStore, SpeedLayer, history_requests
+    from repro_torch.service import FraudService, ModelSection, ServiceConfig
+    from repro_torch.stream import CheckoutEvent, StreamingEngine
+    from repro_torch.utils import crashpoint
+    from repro_torch.utils.crashpoint import SimulatedCrash
+
+    t_phase = time.perf_counter()
+    events, static, _ = generate_event_stream(
+        SynthConfig(num_users=3000, num_rings=50, feature_noise=0.8, seed=1),
+        rate_per_s=STREAM_RATE)
+    feat_dim = static.order_features.shape[1]
+    head = events[:SERVICE_HEAD]
+    launches = {name: 0 for name in _build.LAUNCHES}
+    out: dict = {"events": len(events), "rate_per_s": STREAM_RATE}
+
+    def lnn_cfg(gnn, **kw):
+        return LNNConfig(gnn_type=gnn, num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                         feat_dim=feat_dim, pos_weight=3.0, **kw)
+
+    def service_cfg(cfg, **sections):
+        return ServiceConfig(model=ModelSection.from_lnn_config(cfg)).replace(**sections)
+
+    def counted(fn):
+        """``fn()`` with the launch counters zeroed just before and read just
+        after; returns (result, wall seconds, counts)."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        for name, c in counts.items():
+            launches[name] += c
+        return res, wall, counts
+
+    # ---- 1. the streaming facade against a bare engine, full stream
+    rows, facade_params = [], {}
+    for gnn in ("gcn", "gat", "sage"):
+        cfg = lnn_cfg(gnn)
+        params = lnn_init(torch.Generator().manual_seed(1), cfg, device=dev)
+        facade_params[gnn] = params
+        agg = "edge_softmax" if gnn == "gat" else "csr_spmm"
+        bare = StreamingEngine(params, cfg, service_cfg(cfg).to_engine_config())
+        bare.warmup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bare_rep = bare.replay(events, warmup=False)
+        torch.cuda.synchronize()
+        bare_wall = time.perf_counter() - t0
+        svc = FraudService(service_cfg(cfg), params).build().warmup()
+        rep, wall, counts = counted(lambda: svc.replay(events, warmup=False))
+        s, s_bare = rep.scores_by_order(), bare_rep.scores_by_order()
+        if s != s_bare or len(s) != len(events):
+            diff = sum(1 for o in s_bare if s.get(o) != s_bare[o])
+            raise AssertionError(f"service {gnn}: facade scores differ from the bare engine's "
+                                 f"in {diff} of {len(s_bare)} orders")
+        c, c_bare = _store_contents(svc.store), _store_contents(bare.store)
+        if c != c_bare:
+            raise AssertionError(f"service {gnn}: facade KV bytes differ from the bare "
+                                 f"engine's ({len(c)} vs {len(c_bare)} entries)")
+        st = svc.stats()
+        st1 = svc.engine.refresher.stats["stage1_launches"]
+        per_call = cfg.num_gnn_layers - 1
+        if counts["stage2_score"] != st.flushes or counts[agg] != st1 * per_call:
+            raise AssertionError(f"service {gnn}: launches {counts} for {st.flushes} flushes "
+                                 f"and {st1} stage-1 calls x {per_call}")
+        pct, bare_pct = rep.percentiles_ms(), bare_rep.percentiles_ms()
+        head_svc = FraudService(service_cfg(cfg), params).build().warmup()
+        got = {}
+        with torch.no_grad():
+            wall_p, busy, top, n_kernels = profiled(
+                lambda: got.update(rep=head_svc.replay(head, warmup=False)))
+        if gnn == "gcn":
+            out["head_scores"] = got["rep"].scores_by_order()
+        row = dict(gnn=gnn, wall_s=wall, events_per_s=len(events) / wall,
+                   bare_wall_s=bare_wall, bare_events_per_s=len(events) / bare_wall,
+                   latency_ms=pct, bare_latency_ms=bare_pct, flushes=st.flushes,
+                   refreshes=st.refreshes, stage1_launches=st1, kv_entries=len(c),
+                   launches=counts, head_profiled_s=wall_p, head_busy_share=busy,
+                   head_kernels=n_kernels, head_top=top)
+        rows.append(row)
+        print(f"service {gnn}: FraudService(streaming) {len(events)} events in {wall:.3f} s "
+              f"({row['events_per_s']:.1f} events/s, wall; bare engine {bare_wall:.3f} s, "
+              f"{row['bare_events_per_s']:.1f} events/s), latency p50 {pct['p50']:.3f} p99 "
+              f"{pct['p99']:.3f} ms (bare p50 {bare_pct['p50']:.3f} p99 {bare_pct['p99']:.3f}); "
+              f"scores and {len(c)} KV entries equal to the bare engine's bit for bit; "
+              f"launches {counts} ({st.flushes} flushes, {st1} stage-1 calls); card busy "
+              f"{busy:.1%} of {wall_p:.3f} s over the first {len(head)} events "
+              f"({n_kernels} kernels, profiled)")
+    out["streaming"] = rows
+
+    # ---- 2. the batch facade against BatchLayer / SpeedLayer
+    static_b, _ = generate_transactions(SynthConfig(num_users=3000, num_rings=50,
+                                                    feature_noise=0.8, seed=1))
+    split = make_split_masks(static_b.order_snapshot)
+    static_b.order_features, _ = standardize_features(static_b.order_features, split == 0)
+    batches = build_communities(static_b, community_size=256, max_deg=24)
+    requests = history_requests(batches)
+    cfg = LNNConfig(gnn_type="gcn", num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                    feat_dim=batches[0].graph.features.shape[1], pos_weight=3.0)
+    params = lnn_init(torch.Generator().manual_seed(1), cfg, device=dev)
+    store = KVStore(cfg.hidden_dim)
+    BatchLayer(params, cfg, store, device=dev).refresh(batches)
+    speed = SpeedLayer(params, cfg, store, k_max=8, device=dev)
+    want = np.concatenate([speed.score(requests[i:i + MICRO_BATCH])
+                           for i in range(0, len(requests), MICRO_BATCH)])
+    svc = FraudService(service_cfg(cfg, mode="batch"), params).build().warmup()
+
+    def batch_run():
+        svc.refresh(batches)
+        return [svc.score(requests[i:i + MICRO_BATCH])
+                for i in range(0, len(requests), MICRO_BATCH)]
+
+    chunks, b_wall, b_counts = counted(batch_run)
+    got = np.asarray([r.score for chunk in chunks for r in chunk])
+    if not np.array_equal(got, want):
+        raise AssertionError(f"service batch: facade scores differ from SpeedLayer's "
+                             f"(max {float(np.abs(got - want).max()):.3e})")
+    if _store_contents(svc.store) != _store_contents(store):
+        raise AssertionError("service batch: facade KV bytes differ from BatchLayer's")
+    gap = svc.score_equivalence_check(batches, atol=EQUIV_ATOL)
+    per_refresh = b_counts["csr_spmm"] / len(batches)
+    if per_refresh != cfg.num_gnn_layers - 1 or b_counts["stage2_score"] != len(chunks):
+        raise AssertionError(f"service batch: launches {b_counts} for {len(batches)} "
+                             f"communities and {len(chunks)} score calls")
+    out["batch"] = dict(communities=len(batches), requests=len(requests),
+                        score_calls=len(chunks), wall_s=b_wall, equivalence_gap=gap,
+                        launches=b_counts)
+    print(f"service batch gcn: refresh of {len(batches)} communities + {len(requests)} requests "
+          f"in {len(chunks)} calls of {MICRO_BATCH} in {b_wall:.3f} s; scores equal to "
+          f"BatchLayer/SpeedLayer's bit for bit (and the KV bytes); score_equivalence_check "
+          f"{gap:.3e} (limit {EQUIV_ATOL}); launches {b_counts}")
+
+    # ---- 3. hot swap to a clone, shadow scoring, a canary
+    cfg = lnn_cfg("gcn")
+    params = facade_params["gcn"]
+    svc = FraudService(service_cfg(cfg), params).build()
+    clone = svc.register_perturbed(0, 0.0)
+    canary = svc.register_perturbed(0, 0.05, seed=1)
+    svc.warmup()
+    svc.enable_shadow(clone, fraction=SHADOW_FRACTION, threshold=0.0)
+    half, delivered, observed = len(head) // 2, [], [0]
+
+    def swap_run():
+        for i, ev in enumerate(head):
+            res = svc.submit(ev)
+            observed[0] += svc.shadow_observe(res)
+            delivered.extend(res)
+            if i == half:
+                out["clone_shadow"] = svc.shadow_stats()
+                svc.activate_model(clone)
+                svc.enable_shadow(canary, fraction=SHADOW_FRACTION, threshold=1e-3)
+        res = svc.drain()
+        observed[0] += svc.shadow_observe(res)
+        delivered.extend(res)
+
+    _, sw_wall, sw_counts = counted(swap_run)
+    scores = {r.request.tag.order_id: r.score for r in delivered}
+    if scores != out.pop("head_scores"):
+        raise AssertionError("service: a hot swap to a register_perturbed(0, 0.0) clone moved "
+                             "a score")
+    cl, can = out["clone_shadow"], svc.shadow_stats()
+    if not (cl["sampled"] > 0 and cl["divergence_max"] == 0.0 and not cl["alert_active"]):
+        raise AssertionError(f"service: clone shadow {cl}")
+    if not (can["alert_active"] and can["divergence_max"] > 1e-3):
+        raise AssertionError(f"service: the canary's alert did not trip: {can}")
+    versions = [r.model_version for r in delivered]
+    shadow_launches = sw_counts["stage2_score"] - svc.stats().flushes
+    if versions != sorted(versions) or set(versions) != {0, 1} or shadow_launches <= 0:
+        raise AssertionError(f"service: swap versions {sorted(set(versions))}, shadow "
+                             f"launches {shadow_launches}")
+    out["swap"] = dict(events=len(head), wall_s=sw_wall, shadow_sampled=observed[0],
+                       shadow_launches=shadow_launches, launches=sw_counts,
+                       clone_divergence_max=cl["divergence_max"],
+                       canary_divergence_max=can["divergence_max"], canary_alerts=can["alerts"])
+    print(f"service swap gcn ({len(head)} events): hot swap to a register_perturbed(0, 0.0) "
+          f"clone after event {half}: every score equal bit for bit; shadow at fraction "
+          f"{SHADOW_FRACTION}: clone divergence max {cl['divergence_max']} over "
+          f"{cl['sampled']} samples, canary (scale 0.05) divergence max "
+          f"{can['divergence_max']:.3e}, {can['alerts']} alerts; {observed[0]} shadow samples "
+          f"in {shadow_launches} shadow stage2_score launches; launches {sw_counts}")
+
+    # ---- 4. WAL, checkpoint, crash -> restore -> resume
+    swap_params = lnn_init(torch.Generator().manual_seed(2), cfg, device=dev)
+    swap = (SERVICE_SWAP_AT, swap_params, 1)
+
+    def make():
+        return FraudService(service_cfg(cfg), params).build()
+
+    fired: dict = {}
+    fire = crashpoint.fire
+
+    def counting_fire(name):
+        fired[name] = fired.get(name, 0) + 1
+        fire(name)
+
+    crashpoint.fire = counting_fire
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            ckpts: list = []
+            base = make().enable_wal(root)
+            want = _merge({}, _drive(base, head, swap=swap, checkpoint_at=SERVICE_CHECKPOINT_AT,
+                                     ckpt_log=ckpts))
+            want_store = _store_contents(base.store)
+            base_ckpt = (ckpts[0][0], _dir_bytes(ckpts[0][1]))
+            base.close()
+    finally:
+        crashpoint.fire = fire
+    crash_rows = []
+    for point in SERVICE_CRASH_POINTS:
+        # a crash about two thirds of the way in (the checkpoint's own: at it)
+        hit = 1 if point.startswith("checkpoint") else max(1, fired[point] * 2 // 3)
+        with tempfile.TemporaryDirectory() as root:
+            svc = make().enable_wal(root)
+            delivered, ckpt_log, crashed = [], [], None
+            crashpoint.arm(point, hit=hit)
+            try:
+                _drive(svc, head, swap=swap, checkpoint_at=SERVICE_CHECKPOINT_AT, out=delivered,
+                       ckpt_log=ckpt_log)
+            except SimulatedCrash as exc:
+                crashed = exc
+            finally:
+                crashpoint.disarm()
+            svc.wal.close()
+            if crashed is None:
+                raise AssertionError(f"service crash {point}: hit {hit} never fired")
+            ckpt_bytes = _dir_bytes(ckpt_log[0][1]) if ckpt_log else 0
+            ckpt_s = ckpt_log[0][0] if ckpt_log else float("nan")
+            torch.cuda.synchronize()
+            svc2 = FraudService.restore(root)
+            rec = svc2.last_recovery
+            merged = _merge(_merge({}, delivered), rec["responses"])
+            resume = svc2.engine.ingester.num_events
+            if resume > swap[0] and svc2.model_version < swap[2]:
+                svc2.load_model(swap[1], version=swap[2])
+            _merge(merged, _drive(svc2, head, start=resume,
+                                  swap=swap if resume <= swap[0] else None,
+                                  checkpoint_at=(SERVICE_CHECKPOINT_AT
+                                                 if resume <= SERVICE_CHECKPOINT_AT else None)))
+            if merged != want or _store_contents(svc2.store) != want_store:
+                diff = sum(1 for o in want if merged.get(o) != want[o])
+                raise AssertionError(f"service crash {point}: after restore {diff} of "
+                                     f"{len(want)} scores differ, or the KV bytes do")
+            replayed = rec["replayed_records"]
+            crash_rows.append(dict(
+                point=point, hit=hit, resume=resume, checkpoint=rec["checkpoint"] is not None,
+                replayed_records=replayed, restore_s=rec["seconds"],
+                replayed_per_s=replayed / rec["seconds"], checkpoint_s=ckpt_s,
+                checkpoint_bytes=ckpt_bytes, model_version=svc2.model_version))
+            svc2.close()
+            print(f"service crash at {point} (hit {hit}): restore in {rec['seconds']:.3f} s "
+                  f"({'from a checkpoint' if rec['checkpoint'] else 'from genesis'}, "
+                  f"{replayed} WAL records replayed, {replayed / rec['seconds']:.1f} records/s), "
+                  f"resumed at event {resume}: merged scores and KV bytes equal to the "
+                  f"uninterrupted run's bit for bit; "
+                  + (f"checkpoint {ckpt_s:.3f} s, {ckpt_bytes} bytes" if ckpt_log
+                     else "the crash came before the checkpoint committed"))
+    out["crash"] = dict(events=len(head), checkpoint_at=SERVICE_CHECKPOINT_AT,
+                        swap_at=SERVICE_SWAP_AT, fired=fired, rows=crash_rows,
+                        uninterrupted_checkpoint_s=base_ckpt[0],
+                        uninterrupted_checkpoint_bytes=base_ckpt[1])
+
+    # ---- 5. the hybrid GNN -> GBDT head on the typed attack stream
+    ev_a, _ = generate_attack_stream(AttackConfig(), rate_per_s=STREAM_RATE)
+    cfg_t = lnn_cfg("gat", entity_types=ENTITY_TYPE_NAMES)
+    params_t = lnn_init(torch.Generator().manual_seed(2), cfg_t, device=dev)
+    half = len(ev_a) // 2
+    trainer = FraudService(service_cfg(cfg_t), params_t).build()
+    trainer.replay(ev_a[:half])
+    eng = trainer.engine
+    keys = [eng.ingester.builder.entity_keys(ev.entities, ev.snapshot) for ev in ev_a[:half]]
+    emb, mask, _ = trainer.store.lookup_batch_versioned(keys, trainer.config.engine.k_max)
+    st = eng.pool.workers[0].scorer._slot_types(keys)
+    feats = np.stack([ev.features for ev in ev_a[:half]]).astype(np.float32)
+    t_args = [torch.from_numpy(a).to(dev) for a in (emb, mask, feats, st)]
+    x = embed_rows(params_t, cfg_t, *t_args[:3], t_args[3])
+    hy = train_hybrid(params_t, cfg_t, x, np.asarray([ev.label for ev in ev_a[:half]]),
+                      device=dev)
+    # the embedding: the card against the host's plain path, and a row's
+    # bits at B=2 against the same rows at B=16 (unchunked, and embed_rows)
+    params_h = from_numpy(to_numpy(params_t), "cpu")
+    x_host = embed_rows(params_h, cfg_t, *(t.cpu() for t in t_args[:3]), t_args[3].cpu())
+    embed_gap = float(np.abs(x - x_host).max())
+    if not embed_gap <= STREAM_SCORE_TOL:
+        raise AssertionError(f"service hybrid: embedding card against host {embed_gap:.3e}")
+    with torch.no_grad():
+        full16 = lnn_stage2_embed(params_t, cfg_t, *(t[:16] for t in t_args[:3]),
+                                  slot_type=t_args[3][:16]).cpu().numpy()
+        pairs = np.concatenate([lnn_stage2_embed(params_t, cfg_t, *(t[i:i + 2] for t in t_args[:3]),
+                                                 slot_type=t_args[3][i:i + 2]).cpu().numpy()
+                                for i in range(0, 16, 2)])
+    unchunked_rows = int((pairs != full16).any(1).sum())
+    pairs_rows = np.concatenate([embed_rows(params_t, cfg_t, *(t[i:i + 2] for t in t_args[:3]),
+                                            t_args[3][i:i + 2]) for i in range(0, 16, 2)])
+    chunked_rows = int((pairs_rows != x[:16]).any(1).sum())
+    if chunked_rows:
+        raise AssertionError(f"service hybrid: embed_rows rows at B=2 differ from B=16 in "
+                             f"{chunked_rows} of 16")
+    t_embed, t_gbdt, hyb = [], [], {}
+    _timed(workers_mod, "embed_rows", t_embed)
+    _timed(hy.gbdt, "predict_proba", t_gbdt)
+    try:
+        for n in (1, 4):
+            svc = FraudService(service_cfg(cfg_t, engine={"num_workers": n}), hy).build().warmup()
+            del t_embed[:], t_gbdt[:]
+            rep, h_wall, h_counts = counted(lambda: svc.replay(ev_a, warmup=False))
+            hyb[n] = dict(scores=rep.scores_by_order(), wall_s=h_wall, launches=h_counts,
+                          flushes=svc.stats().flushes, embed_ms=float(np.median(t_embed)) * 1e3,
+                          gbdt_ms=float(np.median(t_gbdt)) * 1e3, embeds=len(t_embed),
+                          served=sum(1 for w in svc.stats().workers if w["requests"] > 0))
+    finally:
+        workers_mod.embed_rows = embed_rows
+        del hy.gbdt.predict_proba
+    if hyb[4]["scores"] != hyb[1]["scores"] or hyb[4]["served"] < 2:
+        raise AssertionError(f"service hybrid: N=4 scores differ from N=1 "
+                             f"({hyb[4]['served']} workers served)")
+    if hyb[1]["embeds"] != hyb[1]["flushes"] or hyb[1]["launches"]["stage2_score"] != 0:
+        raise AssertionError(f"service hybrid: {hyb[1]['embeds']} embeddings for "
+                             f"{hyb[1]['flushes']} flushes, launches {hyb[1]['launches']}")
+    # the booster is a step function of its inputs: an embedding within
+    # the gap of a bin edge lands in another bin on the card than on the
+    # host, and only such a row may get another probability
+    bin_rows = (hy.gbdt.bin_data(x) != hy.gbdt.bin_data(x_host)).any(1)
+    prob_rows = hy.gbdt.predict_proba(x) != hy.gbdt.predict_proba(x_host)
+    if (prob_rows & ~bin_rows).any():
+        raise AssertionError("service hybrid: a probability differs between card and host "
+                             "with every GBDT bin equal")
+    host = FraudService(service_cfg(cfg_t), HybridModel(params_h, cfg_t, hy.gbdt),
+                        device="cpu").build()
+    host_s = host.replay(ev_a).scores_by_order()
+    orders = sorted(host_s)
+    d = np.abs(np.asarray([hyb[1]["scores"][o] for o in orders])
+               - np.asarray([host_s[o] for o in orders]))
+    score_gap, score_rows = float(d.max()), int((d > 0).sum())
+    # rung 7: a typed hybrid service restores from its WAL and checkpoint
+    with tempfile.TemporaryDirectory() as root:
+        svc = FraudService(service_cfg(cfg_t), params_t).build().enable_wal(root)
+        svc.replay(ev_a[:half])
+        svc.activate_model(svc.register_model(hy, version=1))
+        svc.checkpoint()
+        svc.replay(ev_a[half:], warmup=False)
+        restored = FraudService.restore(root)
+        snap = max(ev.snapshot for ev in ev_a) + 1
+        probes = [CheckoutEvent(order_id=90_000 + i, snapshot=snap,
+                                entities=ev.entities, features=ev.features, label=ev.label,
+                                arrival=ev_a[-1].arrival + 1.0 + i)
+                  for i, ev in enumerate(ev_a[-16:])]
+        s1 = svc.replay(probes, warmup=False).scores_by_order()
+        s2 = restored.replay(probes, warmup=False).scores_by_order()
+        if s1 != s2 or restored.model_version != 1:
+            raise AssertionError("service hybrid: the restored typed hybrid service scores "
+                                 "other bits")
+    out["hybrid"] = dict(events=len(ev_a), train_rows=half, embed_gap=embed_gap,
+                         unchunked_rows_b2_vs_b16=unchunked_rows, chunked_rows_b2_vs_b16=0,
+                         train_rows_other_bin=int(bin_rows.sum()),
+                         train_rows_other_prob=int(prob_rows.sum()),
+                         host_score_gap=score_gap, host_score_rows=score_rows,
+                         **{f"n{n}": {k: v for k, v in hyb[n].items() if k != "scores"}
+                            for n in (1, 4)})
+    print(f"service hybrid typed gat (attack stream, {len(ev_a)} events, GBDT of "
+          f"{len(hy.gbdt.trees)} trees on {half} embeddings): N=4 == N=1 bit for bit "
+          f"({hyb[4]['served']} workers served); embedding card against host max|d| "
+          f"{embed_gap:.2e} (limit {STREAM_SCORE_TOL}); of the {half} training embeddings "
+          f"{int(bin_rows.sum())} fall in another GBDT bin on the card than on the host, "
+          f"{int(prob_rows.sum())} of them with another probability (none with equal bins); "
+          f"the replay's scores against the host's: {score_rows} of {len(orders)} differ, max|d| "
+          f"{score_gap:.2e}; rows at "
+          f"B=2 against B=16: lnn_stage2_embed {unchunked_rows} of 16 differ, embed_rows 0; "
+          f"per flush: embed_rows {hyb[1]['embed_ms']:.3f} ms, GBDT predict "
+          f"{hyb[1]['gbdt_ms']:.3f} ms (medians over {hyb[1]['flushes']} flushes); "
+          f"{len(hyb[1]['scores'])} events in {hyb[1]['wall_s']:.3f} s; WAL/checkpoint "
+          f"restore scores 16 probes bit for bit (rung 7)")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"service phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -1686,6 +2148,9 @@ def main() -> int:
     from repro_torch.serve.kvstore import pack_key
 
     dev = torch.device(DEVICE)
+    # the stream phase drives the bare engine on purpose, beside the facade
+    warnings.filterwarnings("ignore", message="constructing StreamingEngine directly",
+                            category=DeprecationWarning)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1709,6 +2174,9 @@ def main() -> int:
     if "--stream" in sys.argv[1:]:
         stream_phase(dev)
         return 0
+    if "--service" in sys.argv[1:]:
+        service_phase(dev)
+        return 0
 
     # ----------------------------------------------------------------- data
     t0 = time.perf_counter()
@@ -1730,7 +2198,7 @@ def main() -> int:
         training(dev, batches, split, feat_dim)
         return 0
 
-    # ------------------------------------ 2, 5. kernels against their plain versions
+    # ------------------------------------ 2, 6. kernels against their plain versions
     results = fraud_kernel_checks(dev, batches, feat_dim)
     results.update(zoo_kernel_checks(dev))
 
@@ -1832,19 +2300,25 @@ def main() -> int:
         launches[name] += c
     print("stream: " + json.dumps(stream))
 
-    # ---------------------------------------------------------- 8. training
+    # ------------------------------------------------------ 5. the service
+    service = service_phase(dev)
+    for name, c in service["launches"].items():
+        launches[name] += c
+    print("service: " + json.dumps(service))
+
+    # ---------------------------------------------------------- 9. training
     results.update(training(dev, batches, split, feat_dim))
     for name, c in results["table3"]["launches"].items():
         launches[name] += c
 
-    # ------------------------------------------------- 6, 7. the zoo slice
+    # ------------------------------------------------- 7, 8. the zoo slice
     zoo = zoo_slice(dev)
     for name in ("ssd_scan", "flash_attention", "gqa_decode"):
         launches[name] += zoo["launches"][name]
     zoo["f32_agreement_of_scale"] = zoo_agreement(dev)
     print("zoo: " + json.dumps(zoo))
 
-    # -------------------------------------------------------- 9. kernel line
+    # ------------------------------------------------------- 10. kernel line
     def pick(name, shape_prefix, shape_suffix=""):
         return next(c for c in results[name] if c["shape"].startswith(shape_prefix)
                     and c["shape"].endswith(shape_suffix))
@@ -1916,6 +2390,7 @@ def main() -> int:
     case_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for entry in kernels:
         entry["stream_launches"] = stream["launches"][entry["name"]]
+        entry["service_launches"] = service["launches"][entry["name"]]
         case = stream["kernel_cases"].get(entry["name"])
         if case is not None:
             entry["stream_case"] = {k: case[k] for k in case_keys}

@@ -1,12 +1,13 @@
-"""Typed serving-API request and response — ``repro_torch.service.types``.
+"""Typed serving-API datatypes — ``repro_torch.service.types``.
 
-:class:`ScoreRequest` is what the speed layer scores and
-:class:`ScoreResponse` what the streaming engine returns for it (the
-streaming path calls it ``ScoredResult``).  A dependency leaf (numpy only).
+:class:`ScoreRequest` is what the speed layer scores,
+:class:`ScoreResponse` what the service returns for it (the streaming path
+calls it ``ScoredResult``) and :class:`ServiceStats` one snapshot of a
+service's counters.  A dependency leaf (numpy only).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 
@@ -57,3 +58,73 @@ class ScoreResponse:
     worker: int = 0               # speed-layer worker that scored the flush
     model_version: int = 0        # param version whose pack scored it
     admitted: bool = True         # False = shed by admission control
+
+
+@dataclass
+class ServiceStats:
+    """One structured snapshot of a :class:`~repro_torch.service.FraudService`.
+
+    Lifecycle state, admission accounting, model-registry state, per-version
+    score counts, canary/shadow divergence state, micro-batch/flush
+    counters, batch-layer refresh counters, and KV-store internals.
+    ``to_dict``/``from_dict`` round-trip losslessly through JSON, so one
+    snapshot renders every counter a dashboard reads.
+    """
+
+    mode: str = ""                          # "batch" | "streaming"
+    state: str = ""                         # lifecycle state
+    model_version: int = 0                  # active param version
+    model_versions: tuple = ()              # every registered version
+    model_swaps: int = 0                    # load_model calls after build
+    requests: int = 0                       # offered to the service
+    scored: int = 0                         # responses actually scored
+    shed: int = 0                           # rejected by admission (policy=shed)
+    blocked: int = 0                        # stalled by admission (policy=block)
+    block_timeouts: int = 0                 # block stalls that timed out -> shed
+    queue_depth: int = 0                    # queued right now (streaming)
+    queue_depth_peak: int = 0               # high-water mark since build
+    in_flight_peak: int = 0                 # busy-worker high-water mark
+    flushes: int = 0
+    refreshes: int = 0
+    entities_written: int = 0
+    model_stale_reads: int = 0              # KV hits stamped by an older model
+    store_size: int = 0
+    rollbacks: int = 0                      # rollback_model() calls since build
+    last_good_version: int | None = None    # rollback target (None = no target)
+    scores_by_version: dict = field(default_factory=dict)  # version -> scored
+    shadow: dict = field(default_factory=dict)   # canary/shadow divergence state
+    store_stats: dict = field(default_factory=dict)
+    # one per-worker snapshot (WorkerPool.worker_summary rows: queue depth,
+    # flushes, steals, restarts, liveness), read once per stats() call
+    workers: list = field(default_factory=list)
+    extra: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        """JSON-safe flatten.  ``scores_by_version`` keys become strings
+        (JSON object keys always are); ``from_dict`` restores them to ints,
+        so ``from_dict(json.loads(json.dumps(to_dict())))`` is lossless."""
+        d = dict(self.__dict__)
+        d["model_versions"] = list(self.model_versions)
+        d["scores_by_version"] = {
+            str(k): v for k, v in self.scores_by_version.items()
+        }
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServiceStats":
+        """Inverse of :meth:`to_dict`.  Unknown keys are rejected — a
+        drifted producer fails loudly."""
+        names = {f.name for f in fields(cls)}
+        unknown = sorted(set(d) - names)
+        if unknown:
+            raise ValueError(
+                f"unknown key(s) {unknown} in ServiceStats dict — "
+                f"valid keys: {sorted(names)}")
+        d = dict(d)
+        if "model_versions" in d:
+            d["model_versions"] = tuple(d["model_versions"])
+        if "scores_by_version" in d:
+            d["scores_by_version"] = {
+                int(k): v for k, v in d["scores_by_version"].items()
+            }
+        return cls(**d)

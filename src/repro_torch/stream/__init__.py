@@ -1,8 +1,10 @@
 """repro_torch.stream — real-time streaming ingestion + micro-batched
 speed-layer serving engine (the closed Lambda loop), with a multi-worker
-sharded speed layer (``repro_torch.stream.workers``).  Stage 1 and stage 2
-run on the card by default.  The checkpoint and process-pool modules of
-the reference come with the service layer."""
+sharded speed layer (``repro_torch.stream.workers``) and crash-consistent
+checkpoint/restore with a write-ahead log (``repro_torch.stream.checkpoint``,
+driven through ``repro_torch.service.FraudService``).  Stage 1 and stage 2
+run on the card by default.  The reference's process pool
+(``stream/procpool.py``) is not ported yet."""
 from repro_torch.stream.engine import EngineConfig, ReplayReport, StreamingEngine
 from repro_torch.stream.events import CheckoutEvent, events_from_static, order_event_tuples
 from repro_torch.stream.ingest import IngestResult, StreamIngester

@@ -32,12 +32,13 @@ so benchmark numbers are reproducible yet reflect true compute cost.
 
 Both halves run on ``device`` (default: CUDA): the refresh driver's stage 1
 and every worker's stage 2.  With ``device="cpu"`` they take the kernels'
-plain PyTorch versions.  The engine is the port's streaming entry point;
-the service facade that wraps it in the reference comes with the service
-layer (ROADMAP.md queue 1 item 2), and so does the process backend.
+plain PyTorch versions.  The serving entry point is the facade that wraps
+this engine, ``repro_torch.service.FraudService(mode="streaming")``; the
+process backend comes later (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -48,22 +49,23 @@ from repro_torch.stream.events import CheckoutEvent
 from repro_torch.stream.ingest import StreamIngester
 from repro_torch.stream.microbatch import ScoredResult, ScoreRequest
 from repro_torch.stream.refresh import RefreshDriver
-from repro_torch.stream.workers import WorkerPool, refuse_hybrid
+from repro_torch.stream.workers import WorkerPool
 from repro_torch.utils.device import resolve_device
 
 
 def _stage1_params(params):
-    """The LNN tree driving batch-layer refreshes.  In the reference a
-    hybrid model carries it under ``.lnn_params``; the port serves no
-    hybrid model yet and raises ``NotImplementedError`` for one."""
-    refuse_hybrid(params)
-    return params
+    """The LNN tree driving batch-layer refreshes: hybrid models carry it
+    under ``.lnn_params`` (the booster only replaces online stage 2)."""
+    from repro_torch.models.hybrid import HybridModel
+
+    return params.lnn_params if isinstance(params, HybridModel) else params
 
 
 @dataclass
 class EngineConfig:
     """Knobs for :class:`StreamingEngine` — micro-batching, refresh cadence,
-    DDS history, KV store sizing/sharding, and the multi-worker speed layer."""
+    DDS history, KV store sizing/sharding, and the multi-worker speed layer.
+    ``FraudService`` builds one from ``ServiceConfig.to_engine_config()``."""
 
     k_max: int = 8                  # entity slots per request
     max_batch: int = 16             # micro-batch size trigger (per worker)
@@ -87,8 +89,8 @@ class EngineConfig:
     shard_by_entity: bool | None = None
     # "inline" = workers simulated in-process (classic); "process" = each
     # worker an OS process owning its KV shard, scheduling in the parent:
-    # in the reference (stream/procpool.py); the port's comes with the
-    # service layer, and raises NotImplementedError until then
+    # in the reference (stream/procpool.py); the port does not have it yet
+    # and raises NotImplementedError naming its ROADMAP.md queue item
     backend: str = "inline"
 
 
@@ -110,14 +112,21 @@ class StreamingEngine:
     a single fixed-shape kernel per flush, per worker.
 
     ``device`` (default: CUDA) is where stage 1 and stage 2 run; ``params``
-    lie on it.  ``_via_service`` is accepted for the service facade to
-    come; unlike the reference, direct construction is not deprecated:
-    the port has no facade yet, so the engine is its entry point.
+    lie on it.  Constructing the engine directly is deprecated, as in the
+    reference: the facade (``repro_torch.service.FraudService``,
+    ``mode="streaming"``) wraps it bit-identically and passes
+    ``_via_service=True``.
     """
 
     def __init__(self, params, cfg: LNNConfig, engine_cfg: EngineConfig | None = None,
                  store: KVStore | None = None, _via_service: bool = False,
                  device=None):
+        if not _via_service:
+            warnings.warn(
+                "constructing StreamingEngine directly is deprecated; use "
+                "repro_torch.service.FraudService(mode='streaming')",
+                DeprecationWarning, stacklevel=2,
+            )
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -129,8 +138,8 @@ class StreamingEngine:
                 f"unknown workers backend {backend!r} (inline | process)")
         if backend == "process":
             raise NotImplementedError(
-                "backend='process' (stream/procpool.py) comes with the service "
-                "layer, ROADMAP.md queue 1 item 2; use backend='inline'")
+                "backend='process' (stream/procpool.py) is not ported yet, "
+                "ROADMAP.md queue 1 item 3; use backend='inline'")
         by_entity = self.ecfg.shard_by_entity
         if by_entity is None:
             by_entity = self.ecfg.num_workers > 1
@@ -200,8 +209,10 @@ class StreamingEngine:
         every subsequent flush scores under the new version; subsequent
         batch-layer puts are stamped with it (so reads of pre-swap
         embeddings are detectable via ``store.stats['model_stale_reads']``).
-        ``params`` is an ``lnn_init`` tree on the engine's device (a hybrid
-        GNN -> GBDT model raises ``NotImplementedError``).
+        ``params`` is an ``lnn_init`` tree or a
+        :class:`~repro_torch.models.hybrid.HybridModel` on the engine's
+        device (the refresh driver then runs stage 1 with the hybrid's
+        frozen LNN leaves).
         Returns the version activated (default: current + 1)."""
         if version is None:
             version = self.model_version + 1

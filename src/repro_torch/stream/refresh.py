@@ -173,8 +173,13 @@ class RefreshDriver:
             self.refresh(up_to)
         else:
             # prune completed futures first — over an unbounded stream the
-            # in-flight list must stay bounded between drains
-            self._inflight = [f for f in self._inflight if not f.done()]
+            # in-flight list must stay bounded between drains — and read
+            # each one's result, so a refresh that raised (a crash on the
+            # worker thread) re-raises here instead of vanishing
+            done = [f for f in self._inflight if f.done()]
+            self._inflight = [f for f in self._inflight if f not in done]
+            for f in done:
+                f.result()
             # snapshot the ingester state AND the active model on the
             # calling thread (both keep mutating under new events /
             # hot-swaps); only stage 1 + puts go async
@@ -187,16 +192,21 @@ class RefreshDriver:
         return True
 
     def drain(self):
-        """Join outstanding async refreshes (replay-end barrier)."""
-        for f in self._inflight:
+        """Join outstanding async refreshes (replay-end barrier).  A refresh
+        that raised re-raises here, once."""
+        inflight, self._inflight = self._inflight, []
+        for f in inflight:
             f.result()
-        self._inflight.clear()
 
     def close(self) -> None:
-        """Join outstanding refreshes and stop the async worker thread."""
-        self.drain()
-        if self._pool is not None:
-            self._pool.shutdown()
+        """Join outstanding refreshes and stop the async worker thread — the
+        thread stops also when a refresh on it raised (a crash there then
+        reaches the caller, with no refresh left running)."""
+        try:
+            self.drain()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
 
     # ------------------------------------------------------------------- work
     def _snapshot_graph(self, up_to_snapshot: int):

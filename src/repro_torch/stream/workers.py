@@ -33,12 +33,15 @@ flush interleaving (``tests/test_torch_stream.py`` replay parity).
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.core.hetero import type_code_of
 from repro_torch.core.lnn import LNNConfig, lnn_stage2_online
 from repro_torch.kernels.stage2_score import flatten_stage2_params, pack_stage2_params
+from repro_torch.models.hybrid import HybridModel, embed_rows
 from repro_torch.serve.kvstore import KVStore, entity_shard
 from repro_torch.serve.lambda_pipeline import host_sigmoid
 from repro_torch.stream.microbatch import (
@@ -51,13 +54,17 @@ from repro_torch.stream.microbatch import (
 from repro_torch.utils.device import resolve_device
 
 
-def refuse_hybrid(params) -> None:
-    """Raise for a hybrid GNN -> GBDT model (one with ``lnn_params`` and a
-    booster), which the port does not serve yet."""
-    if hasattr(params, "lnn_params"):
-        raise NotImplementedError(
-            "hybrid GNN -> GBDT models (models/hybrid.py) come with the service "
-            "layer, ROADMAP.md queue 1 item 2; pass an lnn_init parameter tree")
+def check_model(params) -> None:
+    """Raise ``TypeError`` for a hybrid-looking model (one with
+    ``lnn_params``) that is not the port's
+    :class:`~repro_torch.models.hybrid.HybridModel` — the reference's, say,
+    whose leaves are numpy arrays: ``models.hybrid.load_hybrid`` reads its
+    file into the port's."""
+    if hasattr(params, "lnn_params") and not isinstance(params, HybridModel):
+        raise TypeError(
+            f"a hybrid model must be a repro_torch.models.hybrid.HybridModel, "
+            f"got {type(params).__module__}.{type(params).__name__}; load its "
+            "file with repro_torch.models.hybrid.load_hybrid")
 
 
 class ShardRouter:
@@ -134,6 +141,11 @@ class Stage2Scorer:
     ``__call__`` finishes on the (params, version, pack) triple it captured
     at entry — in-flight micro-batches complete on the old model, the next
     flush scores on the new one.
+
+    A :class:`~repro_torch.models.hybrid.HybridModel` version (GNN
+    embedding -> GBDT) has no pack: its flush runs ``lnn_stage2_embed`` on
+    ``device`` (``models.hybrid.embed_rows``, one copy back) and the
+    booster on the host.
     """
 
     def __init__(self, params, cfg: LNNConfig, store: KVStore, k_max: int,
@@ -146,24 +158,32 @@ class Stage2Scorer:
         self._packs: dict[int, tuple] = {}     # version -> (params, pack)
         self.set_model(params, model_version)
 
-    def set_model(self, params, model_version: int) -> None:
-        """Activate a parameter version.  New flushes score under it; each
-        version's pack is built once, and again only if the version is
-        registered anew with other params.
-
-        ``params`` is an ``lnn_init`` tree on this scorer's device; a hybrid
-        GNN -> GBDT model raises ``NotImplementedError``."""
-        refuse_hybrid(params)
-        version = int(model_version)
+    def _pack_for(self, params, version: int):
+        """The stage-2 pack of ``params`` registered as ``version`` (None for
+        a hybrid model), built once per version and again only if the
+        version is registered anew with other params."""
         held = self._packs.get(version)
         if held is None or held[0] is not params:
-            gnn, typed = self.cfg.gnn_type, "typed" in params
-            self._packs[version] = (params, pack_stage2_params(
-                flatten_stage2_params(params, gnn), gnn, typed))
+            pack = None
+            if not isinstance(params, HybridModel):
+                gnn, typed = self.cfg.gnn_type, "typed" in params
+                pack = pack_stage2_params(flatten_stage2_params(params, gnn), gnn, typed)
+            self._packs[version] = (params, pack)
+        return self._packs[version][1]
+
+    def set_model(self, params, model_version: int) -> None:
+        """Activate a parameter version.  New flushes score under it.
+
+        ``params`` is an ``lnn_init`` tree or a
+        :class:`~repro_torch.models.hybrid.HybridModel`, on this scorer's
+        device."""
+        check_model(params)
+        version = int(model_version)
+        pack = self._pack_for(params, version)
         # assign the pack before the version and the params, so that a
         # concurrent flush reading (params, version, pack) at entry never
         # pairs new params with an old version stamp
-        self._pack = self._packs[version][1]
+        self._pack = pack
         self.model_version = version
         self.params = params
 
@@ -187,6 +207,16 @@ class Stage2Scorer:
         return self._score(params, version, pack, feats, entity_t_lists,
                            emb, mask, stale)
 
+    def score_slots(self, feats: np.ndarray, entity_t_lists: list,
+                    emb: np.ndarray, mask: np.ndarray, stale: np.ndarray):
+        """Score a batch whose KV slots were already resolved (``emb``,
+        ``mask``, ``stale`` as ``KVStore.lookup_batch_versioned`` returns
+        them) under the active version — the same ``_score`` tail as
+        ``__call__``, so numerically identical to it."""
+        params, version, pack = self.params, self.model_version, self._pack
+        return self._score(params, version, pack, feats, entity_t_lists,
+                           emb, mask, stale)
+
     def _score(self, params, version, pack, feats, entity_t_lists, emb, mask,
                stale):
         dev = self.device
@@ -194,25 +224,41 @@ class Stage2Scorer:
         st = None
         if self._typed:
             st = torch.from_numpy(self._slot_types(entity_t_lists)).to(dev)
+        emb_t, mask_t = torch.from_numpy(emb).to(dev), torch.from_numpy(mask).to(dev)
+        f_t = torch.from_numpy(f).to(dev)
+        if isinstance(params, HybridModel):
+            # the embedding on the device, the booster on the host: numpy
+            # trees are element-deterministic, so replay parity holds
+            x = embed_rows(params.lnn_params, self.cfg, emb_t, mask_t, f_t, st)
+            probs = params.gbdt.predict_proba(x).astype(np.float32)
+            return probs, stale.max(axis=1), version
         with torch.no_grad():
-            logits = lnn_stage2_online(
-                params, self.cfg, torch.from_numpy(emb).to(dev),
-                torch.from_numpy(mask).to(dev), torch.from_numpy(f).to(dev),
-                slot_type=st, pack=pack)
+            logits = lnn_stage2_online(params, self.cfg, emb_t, mask_t, f_t,
+                                       slot_type=st, pack=pack)
         # host-side f64 sigmoid: numpy ufuncs are element-deterministic for
         # any array length — required for the bit-exact replay parity
         probs = host_sigmoid(logits.cpu().numpy())
         return probs, stale.max(axis=1), version
 
-    def warmup(self, max_batch: int):
+    def warmup(self, max_batch: int, models: dict | None = None):
         """Run every pow2 bucket shape this worker's batcher can emit, on
-        the device (the kernel library's build and the first launches are
-        then off the measured path)."""
+        the device, under the active version and under each of ``models``
+        (``{version: params}``, their packs built here): the kernel
+        library's build, the packs and the first launches are then off the
+        measured path, also for a flush right after a hot swap."""
         buckets = sorted({bucket_size(n, max_batch)
                           for n in range(1, max_batch + 1)})
+        h, k = self.cfg.hidden_dim, self.k_max
         for b in buckets:
             self(np.zeros((b, self.cfg.feat_dim), np.float32),
                  [[] for _ in range(b)])
+        for version, params in (models or {}).items():
+            pack = self._pack_for(params, int(version))
+            for b in buckets:
+                self._score(params, int(version), pack,
+                            np.zeros((b, self.cfg.feat_dim), np.float32),
+                            [[] for _ in range(b)], np.zeros((b, k, h), np.float32),
+                            np.zeros((b, k), np.float32), np.full((b, k), -1, np.int32))
 
 
 class SpeedLayerWorker:
@@ -502,6 +548,50 @@ class WorkerPool:
         subsequent flush (on any worker) scores under the new one."""
         for w in self.workers:
             w.scorer.set_model(params, model_version)
+
+    # ------------------------------------------------------------ admission
+    def busy_workers(self, now: float) -> int:
+        """Workers whose virtual service window is open at ``now`` — the
+        admission controller's in-flight count."""
+        return sum(1 for w in self.workers if not w.free(now))
+
+    def force_flush_deepest(self, now: float) -> list[ScoredResult]:
+        """Flush one batch off the deepest queue at virtual time ``now`` —
+        the admission controller's block policy: the producer stalls while
+        the most backed-up worker drains a batch.  Returns completed
+        results in submission order (empty if every queue is empty)."""
+        victim = max(self.workers, key=lambda w: (len(w), -w.wid))
+        if len(victim) == 0:
+            return []
+        results = victim._flush_at(now, "forced_flushes")
+        self._reorder.add(self._collect(results))
+        return self._reorder.release()
+
+    def drain_to_depth(self, max_depth: int, now: float,
+                       budget_s: float | None = None,
+                       clock=time.monotonic) -> tuple[list[ScoredResult], bool]:
+        """Bounded block-admission wait: force-flush the deepest queue until
+        total depth drops below ``max_depth`` or the wall-clock ``budget_s``
+        runs out.
+
+        Returns ``(results, admitted)``.  ``admitted`` is False exactly when
+        the stall timed out — the budget expired, or a flush pass freed no
+        capacity (wedged queue) while a finite budget was set.  With
+        ``budget_s=None`` a no-progress pass stops the stall and the caller
+        admits over-cap.
+        """
+        results: list[ScoredResult] = []
+        deadline = None if budget_s is None else clock() + budget_s
+        while len(self) >= max_depth:
+            if deadline is not None and clock() >= deadline:
+                return results, False
+            before = len(self)
+            results.extend(self.force_flush_deepest(now))
+            if len(self) >= before:
+                # nothing freed (every queue empty, or the flush raced away):
+                # an unbounded stall admits over-cap; a bounded one sheds
+                return results, deadline is None
+        return results, True
 
     # ----------------------------------------------------------------- drain
     def flush(self, now: float | None = None) -> list[ScoredResult]:

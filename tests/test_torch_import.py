@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -29,8 +30,10 @@ from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.stage2_score import stage2_score_cuda
 from repro_torch.launch import serve as zoo_serve
 from repro_torch.models import init_cache, init_params
-from repro_torch.params import from_numpy
+from repro_torch.models.hybrid import train_hybrid
+from repro_torch.params import from_numpy, to_numpy
 from repro_torch.serve import BatchLayer, KVStore, SpeedLayer
+from repro_torch.service import FraudService, ModelSection, ServiceConfig, build_service
 from repro_torch.stream import (EngineConfig, RefreshDriver, Stage2Scorer, StreamingEngine,
                                 StreamIngester, WorkerPool)
 from repro_torch.train.loop import evaluate_lnn, train_lnn
@@ -83,8 +86,10 @@ def _tiny_graph():
                                    "zoo init_cache", "zoo serve", "zoo serve main",
                                    "train_lnn", "evaluate_lnn", "mlp_init", "train_mlp",
                                    "StreamingEngine", "RefreshDriver", "Stage2Scorer",
-                                   "WorkerPool"])
-def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
+                                   "WorkerPool", "FraudService", "FraudService.restore",
+                                   "FraudService.from_artifact", "build_service",
+                                   "train_hybrid"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_path):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     zoo = get_config("zamba2-1.2b").reduced()
     calls = {
@@ -106,7 +111,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda):
         "RefreshDriver": lambda: RefreshDriver({}, cfg, KVStore(4), StreamIngester(2)),
         "Stage2Scorer": lambda: Stage2Scorer({}, cfg, KVStore(4), 8),
         "WorkerPool": lambda: WorkerPool({}, cfg, KVStore(4)),
+        "FraudService": lambda: FraudService(ServiceConfig()),
+        "FraudService.restore": lambda: FraudService.restore(str(tmp_path)),
+        "FraudService.from_artifact": lambda: FraudService.from_artifact(artifact),
+        "build_service": lambda: build_service(ServiceConfig(), {}),
+        "train_hybrid": lambda: train_hybrid({"w": np.zeros(2)}, cfg, np.zeros((4, 2)),
+                                             np.array([0.0, 1.0, 0.0, 1.0])),
     }
+    artifact = str(tmp_path / "service.json")
+    ServiceConfig().save(artifact)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
@@ -127,27 +140,48 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
     probs, stale, version = sc(np.zeros((2, 2), np.float32), [[], []])
     assert probs.shape == (2,) and version == 0 and (stale == -1).all()
     assert WorkerPool(params, cfg, KVStore(4), device="cpu").device.type == "cpu"
+    sc = ServiceConfig(model=ModelSection.from_lnn_config(cfg))
+    svc = build_service(sc, params, device="cpu")
+    assert svc.device.type == svc.engine.device.type == "cpu"
+    hy = train_hybrid(to_numpy(params), cfg, np.zeros((4, 6)), np.array([0.0, 1, 0, 1]),
+                      device="cpu")
+    assert hy.lnn_params["input"]["w"].device.type == "cpu"
 
 
 def test_streaming_refuses_what_comes_with_the_service_layer():
-    """The process backend and hybrid GNN -> GBDT models raise
-    ``NotImplementedError`` naming the queue item that brings them."""
+    """The process backend raises ``NotImplementedError`` naming the queue
+    item that brings it; a hybrid model that is not the port's
+    ``HybridModel`` (the reference's surface) raises ``TypeError``."""
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     params = lnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="process.*queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="process.*queue 1 item 3"):
         StreamingEngine(params, cfg, EngineConfig(backend="process"), device="cpu")
 
     class Hybrid:                    # the reference HybridModel's surface
         lnn_params = params
         gbdt = None
 
-    with pytest.raises(NotImplementedError, match="hybrid.*queue 1 item 2"):
+    with pytest.raises(TypeError, match="HybridModel.*load_hybrid"):
         StreamingEngine(Hybrid(), cfg, device="cpu")
     eng = StreamingEngine(params, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(TypeError, match="HybridModel"):
         eng.load_model(Hybrid())
     with pytest.raises(ValueError, match="unknown workers backend"):
         StreamingEngine(params, cfg, EngineConfig(backend="thread"), device="cpu")
+
+
+def test_direct_engine_construction_is_deprecated():
+    """As in the reference: the facade passes ``_via_service=True``; any
+    other construction warns and names the facade."""
+    cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
+    params = lnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.warns(DeprecationWarning, match="FraudService"):
+        StreamingEngine(params, cfg, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        StreamingEngine(params, cfg, device="cpu", _via_service=True)
+        FraudService(ServiceConfig(model=ModelSection.from_lnn_config(cfg)), params,
+                     device="cpu").build()
 
 
 def test_launch_counter_is_exact_across_threads():

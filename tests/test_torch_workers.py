@@ -358,15 +358,18 @@ def test_scorer_slot_types_follow_the_entity_tags():
 
 
 def test_scorer_refuses_a_hybrid_model(scorer_world):
+    """A hybrid model that is not the port's ``HybridModel`` (the
+    reference's, say) is refused; the port's is served
+    (``tests/test_torch_hybrid.py``)."""
     cfg, params, _, store, _, _ = scorer_world
 
     class Hybrid:
         lnn_params = params
         gbdt = None
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(TypeError, match="load_hybrid"):
         Stage2Scorer(Hybrid(), cfg, store, k_max=4, device="cpu")
     sc = Stage2Scorer(params, cfg, store, k_max=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(TypeError, match="HybridModel"):
         sc.set_model(Hybrid(), 1)
     assert sc.model_version == 0
