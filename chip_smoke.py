@@ -42,8 +42,9 @@
    B=16 bit for bit, and typed at every bucket).
 5. Serves the same stream through the facade,
    ``repro_torch.service.FraudService``: for gcn, gat and sage the streaming
-   facade against a bare ``StreamingEngine`` (scores and KV bytes bit for
-   bit, exact launches, events/s of both, the card's busy share); for gcn
+   facade against a bare ``StreamingEngine`` in the order engine, facade,
+   facade, engine (scores and KV bytes bit for bit, exact launches,
+   events/s of all four, the card's busy share); for gcn
    the batch facade against ``BatchLayer``/``SpeedLayer`` (bit for bit,
    ``score_equivalence_check`` ≤ 1e-4), a hot swap to a
    ``register_perturbed(0, 0.0)`` clone (bit for bit) and shadow scoring
@@ -78,12 +79,26 @@
    after, ms per synchronized step, the card's busy share over one step and
    test ROC-AUC/AP beside the baselines'.
 10. Prints one JSON line with every kernel's numbers, then the result line.
+11. (Run after step 5.)  The process backend (``repro_torch.stream.procpool``):
+   the stream (gcn, a hot swap after event 5,000) through
+   ``StreamingEngine(backend="process")`` at N = 1, 2 and 4 shard
+   processes between two inline replays, each with events/s, latency and
+   the card's busy share (``nvidia-smi``: the kernels run in the
+   children); the children's launch counters zeroed just before and read
+   just after, summed over them (``stage2_score`` once per flush,
+   ``csr_spmm`` once per GNN layer of every stage-1 call, none in the
+   parent); scores and KV bytes equal to the inline replay's bit for bit;
+   each child's card memory and seconds from spawn to warmed; then on the
+   first 2,000 events a checkpoint → restore → resume and ``worker_kill``
+   at N=4 (a SIGKILLed child restored, every order answered once), bit for
+   bit against the inline facade.
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
 (``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 6 only,
 ``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
-and 9, ``--stream`` steps 1 and 4, and ``--service`` steps 1 and 5: a
+and 9, ``--stream`` steps 1 and 4, ``--service`` steps 1 and 5, and
+``--procs`` steps 1 and 11: a
 quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
@@ -1276,9 +1291,10 @@ def _timed(obj, name: str, log: list) -> None:
 
 
 def _store_contents(store) -> dict:
-    """key -> (value bytes, model version) of every entry of every shard."""
-    return {k: (e.value.tobytes(), e.model_version)
-            for shard in store._shards for k, e in shard.items()}
+    """key -> (value bytes, model version) of every entry of every shard (of
+    an inline store, or gathered out of the process backend's children)."""
+    return {k: (np.asarray(v).tobytes(), mv)
+            for shard in store.shard_items() for k, v, _ver, _st, mv in shard}
 
 
 def _host_gap(scores, host_scores, store, host_store, what: str) -> tuple[float, float]:
@@ -1791,30 +1807,45 @@ def service_phase(dev) -> dict:
         params = lnn_init(torch.Generator().manual_seed(1), cfg, device=dev)
         facade_params[gnn] = params
         agg = "edge_softmax" if gnn == "gat" else "csr_spmm"
-        bare = StreamingEngine(params, cfg, service_cfg(cfg).to_engine_config())
-        bare.warmup()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bare_rep = bare.replay(events, warmup=False)
-        torch.cuda.synchronize()
-        bare_wall = time.perf_counter() - t0
-        svc = FraudService(service_cfg(cfg), params).build().warmup()
-        rep, wall, counts = counted(lambda: svc.replay(events, warmup=False))
+        per_call = cfg.num_gnn_layers - 1
+
+        def bare_run():
+            bare = StreamingEngine(params, cfg, service_cfg(cfg).to_engine_config())
+            bare.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bare_rep = bare.replay(events, warmup=False)
+            torch.cuda.synchronize()
+            return bare, bare_rep, time.perf_counter() - t0
+
+        def facade_run():
+            svc = FraudService(service_cfg(cfg), params).build().warmup()
+            rep, wall, counts = counted(lambda: svc.replay(events, warmup=False))
+            st = svc.stats()
+            st1 = svc.engine.refresher.stats["stage1_launches"]
+            if counts["stage2_score"] != st.flushes or counts[agg] != st1 * per_call:
+                raise AssertionError(f"service {gnn}: launches {counts} for {st.flushes} "
+                                     f"flushes and {st1} stage-1 calls x {per_call}")
+            return svc, rep, wall, counts, st, st1
+
+        # engine, facade, facade, engine: neither side always runs first
+        bare, bare_rep, bare_wall = bare_run()
+        svc, rep, wall, counts, st, st1 = facade_run()
+        svc_b, rep_b, wall_b, _, _, _ = facade_run()
+        bare_b, bare_rep_b, bare_wall_b = bare_run()
         s, s_bare = rep.scores_by_order(), bare_rep.scores_by_order()
-        if s != s_bare or len(s) != len(events):
-            diff = sum(1 for o in s_bare if s.get(o) != s_bare[o])
-            raise AssertionError(f"service {gnn}: facade scores differ from the bare engine's "
-                                 f"in {diff} of {len(s_bare)} orders")
+        for what, got_s in (("facade", s), ("second facade", rep_b.scores_by_order()),
+                            ("second bare engine", bare_rep_b.scores_by_order())):
+            if got_s != s_bare or len(got_s) != len(events):
+                diff = sum(1 for o in s_bare if got_s.get(o) != s_bare[o])
+                raise AssertionError(f"service {gnn}: {what} scores differ from the bare "
+                                     f"engine's in {diff} of {len(s_bare)} orders")
         c, c_bare = _store_contents(svc.store), _store_contents(bare.store)
-        if c != c_bare:
+        if c != c_bare or _store_contents(svc_b.store) != c or \
+                _store_contents(bare_b.store) != c:
             raise AssertionError(f"service {gnn}: facade KV bytes differ from the bare "
                                  f"engine's ({len(c)} vs {len(c_bare)} entries)")
-        st = svc.stats()
-        st1 = svc.engine.refresher.stats["stage1_launches"]
-        per_call = cfg.num_gnn_layers - 1
-        if counts["stage2_score"] != st.flushes or counts[agg] != st1 * per_call:
-            raise AssertionError(f"service {gnn}: launches {counts} for {st.flushes} flushes "
-                                 f"and {st1} stage-1 calls x {per_call}")
+        del svc_b, bare_b
         pct, bare_pct = rep.percentiles_ms(), bare_rep.percentiles_ms()
         head_svc = FraudService(service_cfg(cfg), params).build().warmup()
         got = {}
@@ -1823,8 +1854,13 @@ def service_phase(dev) -> dict:
                 lambda: got.update(rep=head_svc.replay(head, warmup=False)))
         if gnn == "gcn":
             out["head_scores"] = got["rep"].scores_by_order()
+        # the order engine, facade, facade, engine: each side's mean of two
+        ratio = (bare_wall + bare_wall_b) / (wall + wall_b)
         row = dict(gnn=gnn, wall_s=wall, events_per_s=len(events) / wall,
                    bare_wall_s=bare_wall, bare_events_per_s=len(events) / bare_wall,
+                   order="engine, facade, facade, engine",
+                   facade_walls_s=[wall, wall_b], bare_walls_s=[bare_wall, bare_wall_b],
+                   facade_over_bare_events_per_s=ratio,
                    latency_ms=pct, bare_latency_ms=bare_pct, flushes=st.flushes,
                    refreshes=st.refreshes, stage1_launches=st1, kv_entries=len(c),
                    launches=counts, head_profiled_s=wall_p, head_busy_share=busy,
@@ -1832,7 +1868,9 @@ def service_phase(dev) -> dict:
         rows.append(row)
         print(f"service {gnn}: FraudService(streaming) {len(events)} events in {wall:.3f} s "
               f"({row['events_per_s']:.1f} events/s, wall; bare engine {bare_wall:.3f} s, "
-              f"{row['bare_events_per_s']:.1f} events/s), latency p50 {pct['p50']:.3f} p99 "
+              f"{row['bare_events_per_s']:.1f} events/s); in the order engine, facade, facade, "
+              f"engine: engine {bare_wall:.3f}/{bare_wall_b:.3f} s, facade {wall:.3f}/"
+              f"{wall_b:.3f} s, facade/engine events/s {ratio:.3f}; latency p50 {pct['p50']:.3f} p99 "
               f"{pct['p99']:.3f} ms (bare p50 {bare_pct['p50']:.3f} p99 {bare_pct['p99']:.3f}); "
               f"scores and {len(c)} KV entries equal to the bare engine's bit for bit; "
               f"launches {counts} ({st.flushes} flushes, {st1} stage-1 calls); card busy "
@@ -2127,6 +2165,279 @@ def service_phase(dev) -> dict:
     return out
 
 
+PROCS_WORKERS = (1, 2, 4)            # shard processes per process-backend replay
+PROCS_SWAP_AT = 5000                 # the full replays hot-swap after this event
+PROCS_KILL_HIT = 8                   # worker_kill: the 8th SCORE post SIGKILLs its child
+
+
+class _BusySampler:
+    """The card's busy share over a run, across every process on it:
+    ``nvidia-smi``'s ``utilization.gpu`` (the share of its sample period in
+    which a kernel ran) polled every 100 ms by a child ``nvidia-smi`` that
+    is stopped when the run ends.  ``share`` is None where it gave no
+    sample.  The profiler traces one process only, and the process
+    backend's kernels run in the shard processes."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+        self.samples = len(vals)
+        self.share = sum(vals) / len(vals) / 100.0 if vals else None
+
+
+def _smi_memory_used_mib() -> float | None:
+    """The card's used memory (MiB) as ``nvidia-smi`` reads it, None where
+    it reads none."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    return float(out[0]) if out and out[0].replace(".", "", 1).isdigit() else None
+
+
+def _smi_compute_apps() -> dict:
+    """pid -> MiB of every process with a context on the card, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory`` lists them (in a
+    container the pids may be the host's, or none may be listed)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mib = (x.strip() for x in line.split(","))
+        if pid.isdigit() and mib.replace(".", "", 1).isdigit():
+            apps[int(pid)] = float(mib)
+    return apps
+
+
+def procs_phase(dev) -> dict:
+    """The process backend (``repro_torch.stream.procpool``): each speed-layer
+    worker a spawned shard process with its own CUDA context on the card,
+    owning its KV shard, its ``stage2_score`` launches and the stage-1 bins
+    of a refresh.  The full stream (gcn, a hot swap after event 5,000) at
+    N = 1, 2 and 4 processes between two inline replays (inline, process,
+    process, process, inline), each with events/s, latency and the card's
+    busy share, the children's launch counters zeroed just before and read
+    just after (summed over the children: ``stage2_score`` once per flush,
+    ``csr_spmm`` once per GNN layer of every stage-1 call, none in the
+    parent); scores and KV bytes equal the inline replay's bit for bit.
+    Then, on the first 2,000 events against the inline facade: a
+    checkpoint → restore → resume and a ``worker_kill`` at four children
+    (SIGKILL of a child, restart counted, the flush re-dispatched once),
+    bit for bit;
+    and what a child costs: its context's memory and seconds from spawn to
+    the end of its warmup."""
+    import tempfile
+
+    from repro_torch.core import LNNConfig, lnn_init
+    from repro_torch.data import SynthConfig, generate_event_stream
+    from repro_torch.kernels import _build
+    from repro_torch.service import FraudService, ModelSection, ServiceConfig
+    from repro_torch.stream import EngineConfig, StreamingEngine
+    from repro_torch.utils import crashpoint
+
+    t_phase = time.perf_counter()
+    events, static, _ = generate_event_stream(
+        SynthConfig(num_users=3000, num_rings=50, feature_noise=0.8, seed=1),
+        rate_per_s=STREAM_RATE)
+    head = events[:STREAM_CHECK_EVENTS]
+    cfg = LNNConfig(gnn_type="gcn", num_gnn_layers=3, hidden_dim=64, mlp_dims=(64, 32),
+                    feat_dim=static.order_features.shape[1], pos_weight=3.0)
+    params = lnn_init(torch.Generator().manual_seed(1), cfg, device=dev)
+    params2 = lnn_init(torch.Generator().manual_seed(2), cfg, device=dev)
+    per_call = cfg.num_gnn_layers - 1
+    launches = {name: 0 for name in _build.LAUNCHES}
+    out: dict = {"events": len(events), "rate_per_s": STREAM_RATE, "swap_at": PROCS_SWAP_AT}
+
+    # ---- the full stream: inline, process N=1, 2, 4, inline
+    def replay(backend, n):
+        torch.cuda.synchronize()
+        mem0 = _smi_memory_used_mib()
+        t0 = time.perf_counter()
+        eng = StreamingEngine(params, cfg, EngineConfig(num_workers=n, backend=backend))
+        try:
+            row = dict(backend=backend, workers=n)
+            if backend == "process":
+                ready = eng.pool.warmup()
+                mem1 = _smi_memory_used_mib()
+                row.update(spawn_to_ready_s=ready, start_s=time.perf_counter() - t0,
+                           card_mib_added=(None if None in (mem0, mem1) else mem1 - mem0),
+                           compute_apps_mib=_smi_compute_apps())
+                eng.pool.child_launches(reset=True)
+            else:
+                eng.warmup()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            results = []
+            with _BusySampler() as busy:
+                t0 = time.perf_counter()
+                for i, ev in enumerate(events):
+                    results.extend(eng.submit(ev))
+                    if i == PROCS_SWAP_AT:
+                        eng.load_model(params2, 1)
+                results.extend(eng.flush())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            parent_counts = dict(_build.LAUNCHES)
+            if backend == "process":
+                counts = eng.pool.child_launches()
+                if any(parent_counts[k] for k in ("stage2_score", "csr_spmm")):
+                    raise AssertionError(f"procs N={n}: the parent launched {parent_counts}")
+            else:
+                counts = parent_counts
+            flushes = eng.pool.stats["flushes"]
+            st1 = eng.refresher.stats["stage1_launches"]
+            if counts["stage2_score"] != flushes or counts["csr_spmm"] != st1 * per_call:
+                raise AssertionError(f"procs {backend} N={n}: launches {counts} for {flushes} "
+                                     f"flushes and {st1} stage-1 calls x {per_call}")
+            if len(results) != len(events):
+                raise AssertionError(f"procs {backend} N={n}: {len(results)} results")
+            lat = np.asarray([r.queued_s + r.service_s for r in results]) * 1e3
+            p50, p99 = np.percentile(lat, (50, 99))
+            row.update(wall_s=wall, events_per_s=len(events) / wall,
+                       latency_ms={"p50": float(p50), "p99": float(p99)},
+                       busy_share=busy.share, busy_samples=busy.samples, flushes=flushes,
+                       stage1_calls=st1, launches=counts,
+                       scores={r.request.tag.order_id: (r.score, r.model_version)
+                               for r in results},
+                       store=_store_contents(eng.store))
+            return row
+        finally:
+            eng.close()
+
+    runs = [replay("inline", 1)] + [replay("process", n) for n in PROCS_WORKERS] \
+        + [replay("inline", 1)]
+    base = runs[0]
+    for row in runs[1:]:
+        if row["scores"] != base["scores"] or row["store"] != base["store"]:
+            diff = sum(1 for o in base["scores"] if row["scores"].get(o) != base["scores"][o])
+            raise AssertionError(f"procs {row['backend']} N={row['workers']}: {diff} scores "
+                                 f"differ from the inline replay's, or the KV bytes do")
+        if row["backend"] == "process":
+            for name, c in row["launches"].items():
+                launches[name] += c
+    for row in runs:
+        busy = "not measured" if row["busy_share"] is None else f"{row['busy_share']:.1%}"
+        extra = ""
+        if row["backend"] == "process":
+            added = row["card_mib_added"]
+            mem = ("not measured" if added is None else
+                   f"+{added:.0f} MiB ({added / row['workers']:.0f} MiB a child: its context "
+                   "and its tensors)")
+            extra = (f"; spawn to warmed {', '.join(f'{x:.2f}' for x in row['spawn_to_ready_s'])}"
+                     f" s per child ({row['start_s']:.2f} s for all), card memory {mem}, "
+                     f"compute apps (pid: MiB) {row['compute_apps_mib']}")
+        print(f"procs {row['backend']} N={row['workers']}: {len(events)} events in "
+              f"{row['wall_s']:.3f} s ({row['events_per_s']:.1f} events/s, wall), latency p50 "
+              f"{row['latency_ms']['p50']:.3f} p99 {row['latency_ms']['p99']:.3f} ms, card busy "
+              f"{busy} ({row['busy_samples']} nvidia-smi samples); {row['flushes']} flushes, "
+              f"{row['stage1_calls']} stage-1 calls, launches stage2_score "
+              f"{row['launches']['stage2_score']} csr_spmm {row['launches']['csr_spmm']}"
+              + (" (summed over the children, none in the parent)"
+                 if row["backend"] == "process" else "") + extra)
+    print(f"procs: every process replay's {len(base['scores'])} scores and {len(base['store'])} "
+          f"KV entries equal the inline replay's bit for bit, across the hot swap after event "
+          f"{PROCS_SWAP_AT}")
+    out["replays"] = [{k: v for k, v in row.items() if k not in ("scores", "store")}
+                      for row in runs]
+
+    # ---- the first 2,000 events: checkpoint -> restore -> resume, worker_kill
+    def service_cfg(backend, n):
+        return ServiceConfig(model=ModelSection.from_lnn_config(cfg)).replace(
+            engine={"num_workers": n}, workers={"backend": backend})
+
+    swap = (SERVICE_SWAP_AT, params2, 1)
+    inline = FraudService(service_cfg("inline", 4), params).build()
+    want = _merge({}, _drive(inline, head, swap=swap))
+    want_store = _store_contents(inline.store)
+    inline.close()
+
+    with tempfile.TemporaryDirectory() as root:
+        svc = FraudService(service_cfg("process", 4), params).build().enable_wal(root)
+        delivered: list = []
+        crash_at = 3 * len(head) // 4
+        for i, ev in enumerate(head[:crash_at]):
+            delivered.extend(svc.submit(ev))
+            if i == swap[0]:
+                svc.load_model(swap[1], version=swap[2])
+            if i == SERVICE_CHECKPOINT_AT:
+                svc.checkpoint()
+        # the crash: no flush, no drain; the shard processes and the WAL go
+        svc.engine.pool.shutdown()
+        svc.wal.close()
+        t0 = time.perf_counter()
+        svc2 = FraudService.restore(root)
+        restore_s = time.perf_counter() - t0
+        try:
+            rec = svc2.last_recovery
+            merged = _merge(_merge({}, delivered), rec["responses"])
+            resume = svc2.engine.ingester.num_events
+            _merge(merged, _drive(svc2, head, start=resume))
+            if merged != want or _store_contents(svc2.store) != want_store:
+                diff = sum(1 for o in want if merged.get(o) != want[o])
+                raise AssertionError(f"procs restore: {diff} of {len(want)} scores differ "
+                                     "from the inline run's, or the KV bytes do")
+        finally:
+            svc2.close()
+    out["restore"] = dict(workers=4, crash_at=crash_at, checkpoint_at=SERVICE_CHECKPOINT_AT,
+                          restore_s=restore_s, recovery_s=rec["seconds"],
+                          replayed_records=rec["replayed_records"], resume=resume)
+    print(f"procs restore (N=4, {len(head)} events): checkpoint after event "
+          f"{SERVICE_CHECKPOINT_AT}, hot swap after {SERVICE_SWAP_AT}, crash at {crash_at}; "
+          f"FraudService.restore in {restore_s:.3f} s (four fresh shard processes re-seeded; "
+          f"{rec['replayed_records']} WAL records replayed), resumed at event {resume}: merged "
+          f"scores and KV bytes equal to the inline run's bit for bit")
+
+    # worker_kill at four children here (the CPU tests hold N=1 and N=4):
+    # each spawn costs ~7-11 s of this phase
+    svc = FraudService(service_cfg("process", 4), params).build()
+    restarts_s: list = []
+    pool = svc.engine.pool
+    restart = pool._restart_child
+
+    def timed_restart(wid):
+        # respawn, model chain, journal, until the new child answers
+        t0 = time.perf_counter()
+        restart(wid)
+        pool._children[wid].request({"cmd": "ping"})
+        restarts_s.append(time.perf_counter() - t0)
+
+    pool._restart_child = timed_restart
+    try:
+        crashpoint.arm("worker_kill", hit=PROCS_KILL_HIT)
+        try:
+            got = _drive(svc, head, swap=swap)
+        finally:
+            crashpoint.disarm()
+        restarts = sum(row["restarts"] for row in pool.worker_summary())
+        answered = sorted(r.request.tag.order_id for r in got)
+        if restarts != 1 or len(restarts_s) != 1 or pool.dead_workers() != 0:
+            raise AssertionError(f"procs worker_kill: {restarts} restarts counted, "
+                                 f"{len(restarts_s)} performed")
+        if answered != sorted(ev.order_id for ev in head):
+            raise AssertionError("procs worker_kill: orders answered other than once each")
+        if _merge({}, got) != want or _store_contents(svc.store) != want_store:
+            raise AssertionError("procs worker_kill: scores or KV bytes differ from the "
+                                 "inline run's")
+    finally:
+        svc.close()
+    print(f"procs worker_kill N=4 (hit {PROCS_KILL_HIT}, {len(head)} events, hot swap after "
+          f"{SERVICE_SWAP_AT}): one SIGKILLed child respawned, restored and answering in "
+          f"{restarts_s[0]:.3f} s (restart counted once), every order answered once, scores "
+          f"and KV bytes equal to the inline run's bit for bit")
+    out["worker_kill"] = dict(workers=4, hit=PROCS_KILL_HIT, restarts=restarts,
+                              restart_s=restarts_s[0])
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"procs phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2176,6 +2487,9 @@ def main() -> int:
         return 0
     if "--service" in sys.argv[1:]:
         service_phase(dev)
+        return 0
+    if "--procs" in sys.argv[1:]:
+        procs_phase(dev)
         return 0
 
     # ----------------------------------------------------------------- data
@@ -2306,6 +2620,12 @@ def main() -> int:
         launches[name] += c
     print("service: " + json.dumps(service))
 
+    # -------------------------------------------- 11. the process backend
+    procs = procs_phase(dev)
+    for name, c in procs["launches"].items():
+        launches[name] += c
+    print("procs: " + json.dumps(procs))
+
     # ---------------------------------------------------------- 9. training
     results.update(training(dev, batches, split, feat_dim))
     for name, c in results["table3"]["launches"].items():
@@ -2391,6 +2711,7 @@ def main() -> int:
     for entry in kernels:
         entry["stream_launches"] = stream["launches"][entry["name"]]
         entry["service_launches"] = service["launches"][entry["name"]]
+        entry["procs_launches"] = procs["launches"][entry["name"]]
         case = stream["kernel_cases"].get(entry["name"])
         if case is not None:
             entry["stream_case"] = {k: case[k] for k in case_keys}

@@ -2,9 +2,10 @@
 
 The ids and aliases are the reference's (``repro.configs``).  The port has
 the configurations whose block programs it runs: ``zamba2-1.2b`` (hybrid)
-and ``mamba2-370m`` (ssm), copied value for value.  Any other known id
-raises ``NotImplementedError``; ``ROADMAP.md`` (queue 1) lists the zoo's
-remaining groups in the order they are to be ported.
+and ``mamba2-370m`` (ssm), copied value for value, and the paper's own
+model, ``lnn_fraud``.  Any other known id raises ``NotImplementedError``;
+``ROADMAP.md`` (queue 1 item 5) lists the zoo's remaining groups in the
+order they are to be ported.
 """
 from __future__ import annotations
 
@@ -41,13 +42,21 @@ CLI_ALIASES = {
 
 
 def get_config(arch: str):
-    """The ``ArchConfig`` of ``arch`` (a CLI name or a module name)."""
+    """The ``ArchConfig`` of ``arch`` (a CLI name or a module name), or the
+    paper's ``LNNConfig`` for ``"lnn_fraud"``."""
     mod_name = CLI_ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
-    if mod_name not in ARCH_IDS:
+    if mod_name not in ARCH_IDS and mod_name != "lnn_fraud":
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(CLI_ALIASES)}")
-    if mod_name not in PORTED_IDS:
+    if mod_name in ARCH_IDS and mod_name not in PORTED_IDS:
         raise NotImplementedError(
             f"{arch!r} is not ported yet: the port serves the ssm and hybrid "
-            f"configurations {sorted(PORTED_IDS)}; ROADMAP.md queue 1 lists "
-            "the zoo's remaining groups in order")
+            f"configurations {sorted(PORTED_IDS)}; ROADMAP.md queue 1 item 5 "
+            "lists the zoo's remaining groups in order")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+def all_configs():
+    """``{arch id: config}`` for every zoo id, as the reference's; raises
+    ``NotImplementedError`` (through :func:`get_config`) while an id is
+    unported, never returning a subset."""
+    return {aid: get_config(aid) for aid in ARCH_IDS}

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.baselines.gbdt import GBDTConfig, GBDTModel, _Tree, train_gbdt
-from repro_torch.core.lnn import LNNConfig, lnn_stage2_embed
+from repro_torch.core.lnn import LNNConfig, lnn_init, lnn_stage2_embed
 from repro_torch.params import from_numpy, save_npz, tree_map
 from repro_torch.train.checkpoint import load_checkpoint
 from repro_torch.utils.device import resolve_device
@@ -180,7 +180,18 @@ def load_hybrid(path: str, like_lnn_params, cfg: LNNConfig) -> HybridModel:
     return HybridModel(lnn_params=lnn_params, cfg=cfg, gbdt=gbdt)
 
 
+def load_model_file(path: str, cfg: LNNConfig, device=None):
+    """A model file (written by either package) restored on ``device``
+    (default: CUDA): a :class:`HybridModel` for a :func:`save_hybrid`
+    artifact, else an LNN tree (``train.checkpoint``'s layout), either one
+    taking the structure of an ``lnn_init`` template."""
+    template = lnn_init(torch.Generator().manual_seed(0), cfg, device=device)
+    if is_hybrid_checkpoint(path):
+        return load_hybrid(path, template, cfg)
+    return load_checkpoint(path, template)[0]
+
+
 __all__ = [
     "EMBED_ROWS", "HybridModel", "embed_rows", "is_hybrid_checkpoint",
-    "load_hybrid", "save_hybrid", "train_hybrid",
+    "load_hybrid", "load_model_file", "save_hybrid", "train_hybrid",
 ]

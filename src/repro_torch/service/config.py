@@ -113,10 +113,10 @@ class WorkersSection:
       process: private weight packs, shared GIL and address space.  Zero
       startup cost, the right choice for tests, replay analysis, and
       latency-bound single-core deployments.
-    * ``backend="process"`` — each worker a real OS process owning its KV
-      shard (the reference's ``stream/procpool.py``).  The port does not
-      have it yet: ``FraudService.build`` raises ``NotImplementedError``
-      naming ROADMAP.md's queue item for it.
+    * ``backend="process"`` — each worker a spawned OS process owning its
+      KV shard, its stage-2 calls and the stage-1 bins of a refresh, on the
+      service's device (``repro_torch.stream.procpool``): compute off the
+      serving GIL, for one spawn and one CUDA context per worker.
     * ``ring_bytes`` — per-worker shared-memory ring capacity for SCORE
       feature payloads (oversized batches fall back to in-frame copies).
     """

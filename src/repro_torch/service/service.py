@@ -151,8 +151,9 @@ class FraudService:
     def build(self) -> "FraudService":
         """Construct the store and the mode's serving layers.  Requires a
         registered model (constructor ``params`` or :meth:`load_model`).
-        ``workers.backend="process"`` raises ``NotImplementedError``: the
-        port has no process pool yet."""
+        With ``workers.backend="process"`` each worker is a spawned shard
+        process on ``device`` (``repro_torch.stream.procpool``); checkpoints
+        gather the shards out of them and ``restore`` re-seeds fresh ones."""
         self._ensure(("created",), "build")
         if self._params is None:
             raise ServiceLifecycleError(
@@ -222,8 +223,7 @@ class FraudService:
         if self.mode == "streaming":
             others = {v: p for v, p in self._models.items()
                       if v != self._model_version}
-            for w in self._engine.pool.workers:
-                w.scorer.warmup(w.batcher.max_batch, others)
+            self._engine.pool.warmup(others)
         else:
             from repro_torch.core.lnn import lnn_stage2_online
 
@@ -967,24 +967,15 @@ class FraudService:
         replay, seconds taken) land in ``self.last_recovery``.  ``root`` may
         have been written by either package; the models are restored onto
         ``device`` (default: CUDA)."""
-        from repro_torch.core.lnn import lnn_init
-        from repro_torch.models.hybrid import is_hybrid_checkpoint, load_hybrid
+        from repro_torch.models.hybrid import load_model_file
         from repro_torch.stream import checkpoint as ckpt
-        from repro_torch.train.checkpoint import load_checkpoint
 
         t0 = time.perf_counter()
         dev = resolve_device(device)
         config = ServiceConfig.load(os.path.join(root, "service.json"))
         with open(os.path.join(root, "genesis.json")) as f:
             genesis = json.load(f)
-        # params files restore into a like-structured template on the device
         lnn_cfg = config.to_lnn_config()
-        template = lnn_init(torch.Generator().manual_seed(0), lnn_cfg, device=dev)
-
-        def _load_params(path):
-            if is_hybrid_checkpoint(path):
-                return load_hybrid(path, template, lnn_cfg)
-            return load_checkpoint(path, template)[0]
 
         found = ckpt.latest_checkpoint(root)
         if found is not None:
@@ -1002,7 +993,7 @@ class FraudService:
         svc = cls(config, device=dev)
         svc._wal_root = root
         for v in sorted(registry):
-            params = _load_params(os.path.join(root, registry[v]))
+            params = load_model_file(os.path.join(root, registry[v]), lnn_cfg, dev)
             svc.register_model(params, v)
         svc._params = svc._models[active]
         svc._model_version = active
@@ -1021,7 +1012,7 @@ class FraudService:
         try:
             for rec in wal.scan(after_seq=applied):
                 if rec["kind"] == "model":
-                    params = _load_params(os.path.join(root, rec["path"]))
+                    params = load_model_file(os.path.join(root, rec["path"]), lnn_cfg, dev)
                     svc.load_model(params, rec["version"])
                 elif rec["kind"] == "drain":
                     responses.extend(svc.drain(rec["now"]))

@@ -2,9 +2,9 @@
 speed-layer serving engine (the closed Lambda loop), with a multi-worker
 sharded speed layer (``repro_torch.stream.workers``) and crash-consistent
 checkpoint/restore with a write-ahead log (``repro_torch.stream.checkpoint``,
-driven through ``repro_torch.service.FraudService``).  Stage 1 and stage 2
-run on the card by default.  The reference's process pool
-(``stream/procpool.py``) is not ported yet."""
+driven through ``repro_torch.service.FraudService``), and a process backend
+whose workers are spawned shard processes (``repro_torch.stream.procpool``).
+Stage 1 and stage 2 run on the card by default."""
 from repro_torch.stream.engine import EngineConfig, ReplayReport, StreamingEngine
 from repro_torch.stream.events import CheckoutEvent, events_from_static, order_event_tuples
 from repro_torch.stream.ingest import IngestResult, StreamIngester
@@ -15,6 +15,7 @@ from repro_torch.stream.microbatch import (
     ScoredResult,
     ScoreRequest,
 )
+from repro_torch.stream.procpool import ProcessWorkerPool, ProcStoreView, ShardServer
 from repro_torch.stream.refresh import RefreshDriver
 from repro_torch.stream.workers import (
     DepthAutoscaler,
@@ -32,11 +33,14 @@ __all__ = [
     "IngestResult",
     "MicroBatcher",
     "PendingFlush",
+    "ProcStoreView",
+    "ProcessWorkerPool",
     "RefreshDriver",
     "ReplayReport",
     "ScoreRequest",
     "ScoredResult",
     "ShardRouter",
+    "ShardServer",
     "SpeedLayerWorker",
     "Stage2Scorer",
     "StreamIngester",

@@ -31,10 +31,11 @@ lookup and stage-2 call, and per-request latency = queue wait + service —
 so benchmark numbers are reproducible yet reflect true compute cost.
 
 Both halves run on ``device`` (default: CUDA): the refresh driver's stage 1
-and every worker's stage 2.  With ``device="cpu"`` they take the kernels'
-plain PyTorch versions.  The serving entry point is the facade that wraps
-this engine, ``repro_torch.service.FraudService(mode="streaming")``; the
-process backend comes later (ROADMAP.md queue 1).
+and every worker's stage 2 — with ``backend="process"`` in the workers'
+shard processes (``repro_torch.stream.procpool``), each on the same device.
+With ``device="cpu"`` they take the kernels' plain PyTorch versions.  The
+serving entry point is the facade that wraps this engine,
+``repro_torch.service.FraudService(mode="streaming")``.
 """
 from __future__ import annotations
 
@@ -88,9 +89,8 @@ class EngineConfig:
     # num_workers > 1, classic key-spread shards otherwise
     shard_by_entity: bool | None = None
     # "inline" = workers simulated in-process (classic); "process" = each
-    # worker an OS process owning its KV shard, scheduling in the parent:
-    # in the reference (stream/procpool.py); the port does not have it yet
-    # and raises NotImplementedError naming its ROADMAP.md queue item
+    # worker an OS process owning its KV shard, scheduling stays in the
+    # parent (repro_torch.stream.procpool) — replay bit-identical
     backend: str = "inline"
 
 
@@ -136,10 +136,6 @@ class StreamingEngine:
         if backend not in ("inline", "process"):
             raise ValueError(
                 f"unknown workers backend {backend!r} (inline | process)")
-        if backend == "process":
-            raise NotImplementedError(
-                "backend='process' (stream/procpool.py) is not ported yet, "
-                "ROADMAP.md queue 1 item 3; use backend='inline'")
         by_entity = self.ecfg.shard_by_entity
         if by_entity is None:
             by_entity = self.ecfg.num_workers > 1
@@ -161,9 +157,7 @@ class StreamingEngine:
             entity_history=self.ecfg.entity_history,
             max_history=self.ecfg.max_history,
         )
-        self.store = store or KVStore(cfg.hidden_dim, **store_kwargs)
-        self.pool = WorkerPool(
-            params, cfg, self.store,
+        pool_kwargs = dict(
             num_workers=self.ecfg.num_workers,
             k_max=self.ecfg.k_max,
             max_batch=self.ecfg.max_batch,
@@ -172,6 +166,21 @@ class StreamingEngine:
             steal_threshold=self.ecfg.steal_threshold,
             device=self.device,
         )
+        if backend == "process":
+            if store is not None:
+                raise ValueError(
+                    "backend='process' owns its KV shards inside the worker "
+                    "processes — an injected store cannot be used")
+            from repro_torch.stream.procpool import ProcessWorkerPool
+
+            self.pool = ProcessWorkerPool(
+                params, cfg, dict(dim=cfg.hidden_dim, **store_kwargs), **pool_kwargs)
+            # the parent-side facade over the children's shards: same read/
+            # write/checkpoint surface as the inline KVStore
+            self.store = self.pool.store
+        else:
+            self.store = store or KVStore(cfg.hidden_dim, **store_kwargs)
+            self.pool = WorkerPool(params, cfg, self.store, **pool_kwargs)
         self.refresher = RefreshDriver(
             _stage1_params(params), cfg, self.store, self.ingester,
             max_deg=self.ecfg.max_deg,
@@ -180,6 +189,10 @@ class StreamingEngine:
             router=self.pool.router,
             community_local=self.ecfg.community_local,
             community_size=self.ecfg.community_size,
+            # process backend: padded stage-1 bins compute in the shard
+            # processes, off the serving GIL (bit-identical outputs)
+            stage1_executor=(self.pool.refresh_bins
+                             if backend == "process" else None),
             device=self.device,
         )
 
@@ -270,8 +283,9 @@ class StreamingEngine:
 
     # --------------------------------------------------------------- lifecycle
     def close(self) -> None:
-        """Release backend resources: joins outstanding refreshes and stops
-        the async refresh thread (the inline pool holds nothing else)."""
+        """Release backend resources: joins outstanding refreshes, stops
+        the async refresh thread, and stops the process backend's shard
+        processes (the inline pool holds nothing else)."""
         self.refresher.close()
         self.pool.shutdown()
 

@@ -116,9 +116,9 @@ class RefreshDriver:
         self.model_version = 0
         # optional off-GIL stage-1 backend:
         # ``executor(padded_graphs, entity_hints, model_version) -> [h]``
-        # (a process pool's: each padded bin computes in the shard process
-        # owning the bin's first dirty entity).  None = stage 1 inline on
-        # ``device``, the only backend so far.  Padding, bin-packing, and
+        # (``ProcessWorkerPool.refresh_bins``: each padded bin computes in
+        # the shard process owning the bin's first dirty entity).  None =
+        # stage 1 inline on ``device``.  Padding, bin-packing, and
         # row gathering stay here either way, so executor outputs are
         # bit-identical by the same argument as scoring (pure fixed-shape
         # compute).

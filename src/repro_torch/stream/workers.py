@@ -604,9 +604,12 @@ class WorkerPool:
         assert len(self._reorder) == 0, "reorder buffer retained results"
         return out
 
-    def warmup(self) -> None:
+    def warmup(self, models: dict | None = None) -> None:
+        """Run every bucket shape on every worker, under the active version
+        and under each of ``models`` (``{version: params}``, registered
+        versions whose packs are built here)."""
         for w in self.workers:
-            w.scorer.warmup(w.batcher.max_batch)
+            w.scorer.warmup(w.batcher.max_batch, models)
 
     def shutdown(self) -> None:
         """Release backend resources.  The inline pool holds none; the

@@ -9,6 +9,11 @@ facade's ``enable_wal`` / ``checkpoint`` / ``restore``), on the CPU:
   ``CRASH_POINTS`` but ``worker_kill``), at one and four workers, with a
   mid-stream hot swap and checkpoint, crash → restore → replay → resume
   gives the uninterrupted run's scores and KV bytes bit for bit;
+* the process backend (``repro_torch.stream.procpool``) at one and four
+  workers: a checkpoint gathers the shards out of the shard processes and
+  a restore re-seeds fresh ones, and ``worker_kill`` SIGKILLs a shard
+  process mid-stream — each bit for bit against the inline backend's
+  uninterrupted run;
 * the reference's hypothesis property over random crash, checkpoint and
   swap positions;
 * a crash on the async refresh thread reaches the caller and leaves no
@@ -452,6 +457,72 @@ def test_crash_matrix(crash_world, baselines, tmp_path, point, num_workers):
     assert set(res["scores"]) == set(base_scores)
     assert res["scores"] == base_scores
     assert res["store"] == base_store
+
+
+@pytest.mark.parametrize("num_workers", [1, 4])
+def test_worker_kill_process_backend(crash_world, baselines, num_workers):
+    """SIGKILL a shard process mid-stream (the ``worker_kill`` crash point
+    turns the 8th SCORE post into a kill of its target child).  The pool
+    restores the shard from its last snapshot + put-journal suffix and
+    re-dispatches the in-flight flush exactly once: every order answered
+    once, scores AND KV bytes bit-identical to the inline backend's
+    uninterrupted run, and the one restart visible in the per-worker
+    stats."""
+    events, cfg, params, swap_params = crash_world
+    svc = _build(cfg, params, num_workers, workers={"backend": "process"})
+    try:
+        crashpoint.arm("worker_kill", hit=8)
+        try:
+            responses = drive(svc, events, swap=(SWAP_AT, swap_params, 1))
+        finally:
+            crashpoint.disarm()
+        pool = svc.engine.pool
+        assert sum(row["restarts"] for row in pool.worker_summary()) == 1
+        assert pool.dead_workers() == 0
+        assert sorted(r.request.tag.order_id for r in responses) == \
+            sorted(ev.order_id for ev in events)
+        base_scores, base_store = baselines[num_workers]
+        assert merge_responses({}, responses) == base_scores
+        assert store_contents(svc.store) == base_store
+    finally:
+        svc.close()
+
+
+@pytest.mark.parametrize("num_workers", [1, 4])
+@pytest.mark.parametrize("backend", ["inline", "process"])
+def test_checkpoint_restore_roundtrip_backends(crash_world, baselines, tmp_path, backend,
+                                               num_workers):
+    """Mid-stream checkpoint → abandon → restore → finish, with a hot swap
+    in the feed: merged scores and KV bytes equal the inline backend's
+    uninterrupted run, for BOTH worker backends.  With backend='process'
+    the checkpoint gathers shard state out of the worker processes and
+    restore re-seeds a fresh set of them."""
+    events, cfg, params, swap_params = crash_world
+    root = str(tmp_path / "root")
+    svc = _build(cfg, params, num_workers, workers={"backend": backend}).enable_wal(root)
+    delivered: list = []
+    for i, ev in enumerate(events[:40]):
+        delivered.extend(svc.submit(ev))
+        if i == SWAP_AT:
+            svc.load_model(swap_params, version=1)
+        if i == CHECKPOINT_AT:
+            svc.checkpoint()
+    # abandon mid-stream (the crash): no flush, no drain — just release the
+    # shard processes and the WAL handle the restore will reopen
+    svc.engine.pool.shutdown()
+    svc.wal.close()
+    svc2 = FraudService.restore(root, device="cpu")
+    try:
+        assert svc2.engine.ecfg.backend == backend and svc2.model_version == 1
+        merged = merge_responses({}, delivered)
+        merge_responses(merged, svc2.last_recovery["responses"])
+        assert svc2.engine.ingester.num_events == 40
+        merge_responses(merged, drive(svc2, events, start=40))
+        base_scores, base_store = baselines[num_workers]
+        assert merged == base_scores
+        assert store_contents(svc2.store) == base_store
+    finally:
+        svc2.close()
 
 
 def test_crash_on_the_async_refresh_thread(crash_world, tmp_path):

@@ -34,8 +34,9 @@ from repro_torch.models.hybrid import train_hybrid
 from repro_torch.params import from_numpy, to_numpy
 from repro_torch.serve import BatchLayer, KVStore, SpeedLayer
 from repro_torch.service import FraudService, ModelSection, ServiceConfig, build_service
-from repro_torch.stream import (EngineConfig, RefreshDriver, Stage2Scorer, StreamingEngine,
-                                StreamIngester, WorkerPool)
+from repro_torch.stream import (CheckoutEvent, EngineConfig, ProcessWorkerPool, RefreshDriver,
+                                ShardServer, Stage2Scorer, StreamingEngine, StreamIngester,
+                                WorkerPool)
 from repro_torch.train.loop import evaluate_lnn, train_lnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -88,7 +89,8 @@ def _tiny_graph():
                                    "StreamingEngine", "RefreshDriver", "Stage2Scorer",
                                    "WorkerPool", "FraudService", "FraudService.restore",
                                    "FraudService.from_artifact", "build_service",
-                                   "train_hybrid"])
+                                   "train_hybrid", "ProcessWorkerPool", "ShardServer",
+                                   "serve_paper", "paper serve main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_path):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     zoo = get_config("zamba2-1.2b").reduced()
@@ -117,6 +119,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_p
         "build_service": lambda: build_service(ServiceConfig(), {}),
         "train_hybrid": lambda: train_hybrid({"w": np.zeros(2)}, cfg, np.zeros((4, 2)),
                                              np.array([0.0, 1.0, 0.0, 1.0])),
+        "ProcessWorkerPool": lambda: ProcessWorkerPool({}, cfg, dict(dim=4)),
+        "ShardServer": lambda: ShardServer(0, cfg, dict(dim=4), 8, 4, "v0.npz", 0),
+        "serve_paper": lambda: zoo_serve.serve_paper(60, 2),
+        "paper serve main": lambda: zoo_serve.main([]),
     }
     artifact = str(tmp_path / "service.json")
     ServiceConfig().save(artifact)
@@ -149,13 +155,21 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
 
 
 def test_streaming_refuses_what_comes_with_the_service_layer():
-    """The process backend raises ``NotImplementedError`` naming the queue
-    item that brings it; a hybrid model that is not the port's
-    ``HybridModel`` (the reference's surface) raises ``TypeError``."""
+    """The process backend builds and scores (its shard processes on the
+    CPU when asked, as the engine is); a hybrid model that is not the
+    port's ``HybridModel`` (the reference's surface) raises ``TypeError``;
+    an unknown backend raises ``ValueError``."""
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     params = lnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="process.*queue 1 item 3"):
-        StreamingEngine(params, cfg, EngineConfig(backend="process"), device="cpu")
+    proc = StreamingEngine(params, cfg, EngineConfig(backend="process"), device="cpu")
+    try:
+        assert isinstance(proc.pool, ProcessWorkerPool) and proc.pool.ping() == [0]
+        ev = CheckoutEvent(order_id=0, snapshot=0, entities=(1, 2),
+                           features=np.ones(2, np.float32), label=0.0, arrival=0.0)
+        out = proc.submit(ev) + proc.flush()
+        assert len(out) == 1 and 0.0 <= out[0].score <= 1.0 and out[0].staleness == -1
+    finally:
+        proc.close()
 
     class Hybrid:                    # the reference HybridModel's surface
         lnn_params = params

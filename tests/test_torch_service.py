@@ -186,10 +186,15 @@ def test_build_requires_a_model_and_refuses_the_process_backend(world):
         svc.build()
     svc.load_model(params)
     assert svc.build().state == "built"
-    proc = FraudService(sc.replace(workers={"backend": "process"}), params=params,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="procpool.*queue 1 item 3"):
-        proc.build()
+    # the process backend builds: its workers are shard processes, on the
+    # CPU as the service is, and it scores the inline backend's bits
+    events = world["events"][:30]
+    want = {r.request.tag.order_id: r.score for r in svc.replay(events).results}
+    with FraudService(sc.replace(workers={"backend": "process"}), params=params,
+                      device="cpu") as proc:
+        assert proc.state == "built"             # the context manager built it
+        assert type(proc.engine.pool).__name__ == "ProcessWorkerPool"
+        assert proc.replay(events).scores_by_order() == want
 
 
 def test_mode_guards(world, small_communities):

@@ -64,8 +64,9 @@ def _ref_engine(params, cfg, ecfg):
 
 
 def _store_contents(store) -> dict:
-    """key -> (value, model version) of every entry of every shard."""
-    return {k: (e.value, e.model_version) for shard in store._shards for k, e in shard.items()}
+    """key -> (value, model version) of every entry of every shard (of an
+    inline store, or gathered out of the shard processes)."""
+    return {k: (v, mv) for shard in store.shard_items() for k, v, _ver, _st, mv in shard}
 
 
 @pytest.fixture(scope="module")
@@ -237,6 +238,28 @@ def test_replay_matches_reference(worlds, gnn_type):
     assert eng.refresher.stats["refreshes"] > 10
 
 
+def test_process_backend_matches_reference_inline_engine(worlds):
+    """The anchor across the two packages: the port's process backend (four
+    shard processes) against the reference's inline engine on the same
+    events and parameters — scores 1e-5, KV 2e-5, the same flushes,
+    staleness, refresh counters and store counters.  No reference child
+    is spawned."""
+    (ref_events, g, _), (events, _, _) = worlds
+    ref_cfg = R.LNNConfig(gnn_type="gcn", num_gnn_layers=3, hidden_dim=32,
+                          feat_dim=g.order_features.shape[1])
+    params = R.lnn_init(jax.random.PRNGKey(6), ref_cfg)
+    ref_eng = _ref_engine(params, ref_cfg, RS.EngineConfig(max_batch=8, num_workers=4))
+    ref_rep = ref_eng.replay(ref_events)
+    eng = StreamingEngine(_to_port(params), _port_cfg(ref_cfg),
+                          EngineConfig(max_batch=8, num_workers=4, backend="process"),
+                          device="cpu")
+    try:
+        rep = eng.replay(events)
+        _assert_replays_agree(ref_eng, ref_rep, eng, rep)
+    finally:
+        eng.close()
+
+
 def test_typed_attack_replay_matches_reference():
     """The typed named-attack stream through a typed GAT model (per-type
     towers, type-tagged KV keys, per-slot entity types into stage 2), at
@@ -393,6 +416,38 @@ def test_results_arrive_in_submission_order_and_summary(port_world):
     pct = rep.percentiles_ms()
     assert 0.0 <= pct["p50"] <= pct["p95"] <= pct["p99"]
     assert summary["flushes"] == sum(w["flushes"] for w in summary["workers"])
+
+
+@pytest.mark.parametrize("num_workers", [1, 4])
+def test_replay_parity_process_backend_bit_identical(port_world, num_workers):
+    """Ladder rung 8: each worker a spawned shard process owning its KV
+    shard, its stage-2 calls and the stage-1 bins of a refresh — the
+    replay's scores, staleness and flushes, and the KV store's bytes,
+    versions and counters, equal the inline backend's bit for bit."""
+    events, cfg, params = port_world
+    inline = StreamingEngine(params, cfg, EngineConfig(max_batch=8, num_workers=num_workers),
+                             device="cpu")
+    rep_i = inline.replay(events)
+    eng = StreamingEngine(params, cfg, EngineConfig(max_batch=8, num_workers=num_workers,
+                                                    backend="process"), device="cpu")
+    try:
+        rep = eng.replay(events)
+        traits = [(r.request.tag.order_id, r.score, r.staleness, r.worker, r.batch_size)
+                  for r in rep.results]
+        assert traits == [(r.request.tag.order_id, r.score, r.staleness, r.worker, r.batch_size)
+                          for r in rep_i.results]
+        c, c_i = _store_contents(eng.store), _store_contents(inline.store)
+        assert c.keys() == c_i.keys() and len(c) > 0
+        assert all(c[k][0].tobytes() == c_i[k][0].tobytes() and c[k][1] == c_i[k][1]
+                   for k in c_i)
+        assert eng.store.stats == inline.store.stats
+        assert eng.refresher.stats["stage1_launches"] == \
+            inline.refresher.stats["stage1_launches"] > 0
+        if num_workers > 1:
+            served = [w for w in rep.summary()["workers"] if w["requests"] > 0]
+            assert len(served) > 1
+    finally:
+        eng.close()
 
 
 def test_work_stealing_preserves_scores(port_world):
