@@ -92,13 +92,28 @@
    first 2,000 events a checkpoint → restore → resume and ``worker_kill``
    at N=4 (a SIGKILLed child restored, every order answered once), bit for
    bit against the inline facade.
+12. (Run after step 11.)  The continuous-learning plane and the HTTP
+   gateway (``repro_torch.learn``, ``repro_torch.gateway``) at the fraud
+   width on ``benchmarks/learning_bench.py``'s drifting attack stream:
+   serve, shadow-observe and take a learner step every 16 events (WAL tap
+   -> rolling fine-tune on the card -> GBDT refit -> shadow-gated
+   promotion), then an injected regression rolled back; learn off, on, on,
+   off (events/s, latency, per fire the fine-tune's seconds and ms a step
+   and the refit's seconds, every decision, ring recall frozen against
+   recovered, the card's busy share); launches exact against the run's
+   own record; the incumbent untouched across every fire; one window's
+   fine-tune on the card against the host's plain path; the spawned
+   trainer against the inline fine-tune, bit for bit, with the spawn's
+   seconds and card memory; and the gateway over a socket against the
+   in-process service bit for bit, with its checkpoint route and a
+   restoring reboot.
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
 (``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 6 only,
 ``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
 and 9, ``--stream`` steps 1 and 4, ``--service`` steps 1 and 5, and
-``--procs`` steps 1 and 11: a
+``--procs`` steps 1 and 11, and ``--learn`` steps 1 and 12: a
 quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
@@ -2438,6 +2453,668 @@ def procs_phase(dev) -> dict:
     return out
 
 
+LEARN_ATTACK = dict(num_buyers=160, num_rings=6, ring_size=8, num_snapshots=16, num_bursts=1,
+                    num_bin_runs=1, seed=0)   # benchmarks/learning_bench.py's full run
+LEARN_RATE = 500.0            # checkout events per virtual second
+LEARN_STEP_EVERY = 16         # a learner step after every 16 events
+LEARN_TAIL = 40               # the stream's last events: the injected regression
+LEARN_BUDGET = 0.15           # review budget of every recall figure
+LEARN_CHECK_STEPS = 3         # card against host: fine-tune steps from one warm start
+LEARN_LOSS_RTOL = 1e-5        # ... each step's loss, relative
+LEARN_LEAF_TOL = 1e-4         # ... each tuned leaf, of its scale
+LEARN_EMBED_TOL = 1e-5        # ... the GBDT refit's stage-2 embeddings
+WIRE_ATTACK = dict(LEARN_ATTACK, num_buyers=400)   # the same stream, 2,723 events
+WIRE_EVENTS = 2000            # events the gateway scores against the in-process service
+WIRE_BATCH = 10               # events per batched /v1/score body
+WIRE_RESUME = 500             # events the rebooted gateway scores after the checkpoint
+
+
+def learn_service_config(feat_dim: int, **gateway):
+    """The learn cell's ``ServiceConfig``: ``lnn_fraud``'s width (gcn, 3 GNN
+    layers, hidden 64, MLP (64, 32), pos_weight 3) typed with the four
+    entity types, ``benchmarks/learning_bench.py``'s engine (one worker,
+    micro-batches of 8, K=4) and learn section (windows of 48-256 examples
+    every 48, 25 Adam steps at lr 1e-2, the hybrid head with 20 trees,
+    shadow-gated promotion at recall@0.15)."""
+    from repro_torch.core import ENTITY_TYPE_NAMES
+    from repro_torch.service import ServiceConfig
+
+    return ServiceConfig.from_dict({
+        "mode": "streaming",
+        "model": {"gnn_type": "gcn", "num_gnn_layers": 3, "hidden_dim": 64,
+                  "mlp_dims": [64, 32], "feat_dim": int(feat_dim), "pos_weight": 3.0,
+                  "entity_types": list(ENTITY_TYPE_NAMES)},
+        "engine": {"num_workers": 1, "max_batch": 8, "k_max": 4},
+        "gateway": gateway,
+        "learn": {"enabled": True, "min_window": 48, "max_window": 256, "stride": 48,
+                  "steps": 25, "lr": 1e-2, "optimizer": "adam", "head": "hybrid",
+                  "gbdt_trees": 20, "min_eval": 32, "min_eval_pos": 3,
+                  "eval_budget": LEARN_BUDGET, "eval_max": 96, "promote_margin": 0.01,
+                  "rollback_margin": 0.10, "watch_min_eval": 48},
+    })
+
+
+class _MemorySampler:
+    """The card's used memory (``nvidia-smi``) and the compute apps listed
+    on it, polled every 250 ms on a thread while a block runs: the peak
+    used MiB over the block, and every pid other than this one seen with
+    a context (a spawned child's)."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self.base = _smi_memory_used_mib()
+        self.peak, self.apps, self._stop = self.base, {}, threading.Event()
+        me = os.getpid()
+
+        def poll():
+            while not self._stop.wait(0.25):
+                used = _smi_memory_used_mib()
+                if used is not None and (self.peak is None or used > self.peak):
+                    self.peak = used
+                for pid, mib in _smi_compute_apps().items():
+                    if pid != me:
+                        self.apps[pid] = max(mib, self.apps.get(pid, 0.0))
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        self.added = None if None in (self.base, self.peak) else self.peak - self.base
+
+
+def learn_wire(dev, params, feat_dim: int, scratch: str) -> dict:
+    """The gateway (``repro_torch.gateway``) on 127.0.0.1 with the learn
+    cell's config against the in-process service, on the drifting stream at
+    400 buyers (the typed model takes typed entities): its first 2,000
+    events over ``POST /v1/score`` (single bodies, then batched) bit for
+    bit, wire against in-process latency, ``/metrics`` and ``/v1/stats``
+    from one snapshot, ``/admin/train`` and ``/v1/learn/stats``,
+    ``/admin/checkpoint``; then a fresh ``serve_gateway`` on the same
+    directory restores on the card and scores the next 500 events as the
+    uninterrupted service does, bit for bit."""
+    import http.client
+    import tempfile
+
+    from repro_torch.data import AttackConfig
+    from repro_torch.gateway import serve_gateway
+    from repro_torch.learn import drifting_attack_stream
+    from repro_torch.service import FraudService
+
+    wevents, _, _ = drifting_attack_stream(AttackConfig(**WIRE_ATTACK), rate_per_s=LEARN_RATE)
+    head = wevents[:WIRE_EVENTS]
+    resume = wevents[WIRE_EVENTS:WIRE_EVENTS + WIRE_RESUME]
+    root = tempfile.mkdtemp(dir=scratch)
+    wsc = learn_service_config(feat_dim, checkpoint_dir=root)
+
+    ref = FraudService(wsc, params, device=dev).build().warmup()
+    want, proc_ms = {}, []
+    for ev in head:
+        t0 = time.perf_counter()
+        res = ref.submit(ev)
+        proc_ms.append((time.perf_counter() - t0) * 1e3)
+        want.update({r.request.tag.order_id: r.score for r in res})
+    want_head = dict(want)
+    for ev in resume:
+        want.update({r.request.tag.order_id: r.score for r in ref.submit(ev)})
+    want.update({r.request.tag.order_id: r.score for r in ref.drain()})
+    ref.close()
+
+    def body(ev):
+        return {"order_id": ev.order_id, "snapshot": ev.snapshot, "entities": list(ev.entities),
+                "features": ev.features.tolist(), "label": float(ev.label),
+                "arrival": ev.arrival}
+
+    def post(conn, path, payload):
+        raw = json.dumps(payload).encode()
+        conn.request("POST", path, raw, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    def get(conn, path):
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+
+    got, wire_ms = {}, []
+    gw = serve_gateway(wsc, params, device=dev)
+    try:
+        port = gw.port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        half = len(head) // 2
+        for ev in head[:half]:
+            t0 = time.perf_counter()
+            status, reply = post(conn, "/v1/score", {"event": body(ev)})
+            wire_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"learn wire: /v1/score answered {status}: {reply}")
+            got.update({r["order_id"]: r["score"] for r in reply["results"]})
+        for i in range(half, len(head), WIRE_BATCH):
+            status, reply = post(conn, "/v1/score",
+                                 {"events": [body(ev) for ev in head[i:i + WIRE_BATCH]]})
+            if status != 200:
+                raise AssertionError(f"learn wire: /v1/score answered {status}: {reply}")
+            got.update({r["order_id"]: r["score"] for r in reply["results"]})
+        if got != want_head:
+            diff = sum(1 for o in want_head if got.get(o) != want_head[o])
+            raise AssertionError(f"learn wire: {diff} of {len(want_head)} scores differ from the "
+                                 "in-process service's, or the sets do")
+        status, stats = get(conn, "/v1/stats")
+        status2, metrics = get(conn, "/metrics")
+        if (status, status2) != (200, 200):
+            raise AssertionError(f"learn wire: /v1/stats {status}, /metrics {status2}")
+        snap = json.loads(stats)["service"]
+        lines = metrics.splitlines()
+        for key in ("requests", "scored", "flushes", "refreshes", "store_size"):
+            name = f"repro_service_{key}" + ("" if key == "store_size" else "_total")
+            if f"{name} {snap[key]}" not in lines:
+                raise AssertionError(f"learn wire: /metrics lacks '{name} {snap[key]}'")
+        status, trained_reply = post(conn, "/admin/train", {"force": True})
+        if status != 200 or trained_reply["trained"] is None:
+            raise AssertionError(f"learn wire: /admin/train answered {status}: {trained_reply}")
+        status, learn_stats = get(conn, "/v1/learn/stats")
+        learn_stats = json.loads(learn_stats)
+        if status != 200 or learn_stats["fires"] != 1:
+            raise AssertionError(f"learn wire: /v1/learn/stats answered {status}: {learn_stats}")
+        status, ck = post(conn, "/admin/checkpoint", {})
+        if status != 200:
+            raise AssertionError(f"learn wire: /admin/checkpoint answered {status}: {ck}")
+        conn.close()
+    finally:
+        gw.close()     # the service object is abandoned: the simulated crash
+        if gw.learner is not None:
+            gw.learner.close()
+    t0 = time.perf_counter()
+    gw2 = serve_gateway(wsc, None, device=dev)
+    boot_s = time.perf_counter() - t0
+    try:
+        rec = gw2.service.last_recovery
+        if rec is None or gw2.service.engine.ingester.num_events != len(head):
+            raise AssertionError("learn wire: the reboot did not restore the checkpoint")
+        conn = http.client.HTTPConnection("127.0.0.1", gw2.port, timeout=120)
+        for ev in resume:
+            status, reply = post(conn, "/v1/score", {"event": body(ev)})
+            if status != 200:
+                raise AssertionError(f"learn wire: /v1/score answered {status}: {reply}")
+            got.update({r["order_id"]: r["score"] for r in reply["results"]})
+        status, reply = post(conn, "/admin/drain", {})
+        if status != 200:
+            raise AssertionError(f"learn wire: /admin/drain answered {status}: {reply}")
+        got.update({r["order_id"]: r["score"] for r in reply["results"]})
+        status, learn_stats2 = get(conn, "/v1/learn/stats")
+        learn_stats2 = json.loads(learn_stats2)
+        if status != 200 or learn_stats2["state"] != learn_stats["state"]:
+            raise AssertionError(f"learn wire: after the reboot /v1/learn/stats answered "
+                                 f"{status}: {learn_stats2}")
+        conn.close()
+    finally:
+        gw2.close()
+        if gw2.learner is not None:
+            gw2.learner.close()
+        gw2.service.close()
+    if got != want:
+        diff = sum(1 for o in want if got.get(o) != want[o])
+        raise AssertionError(f"learn wire: after the reboot {diff} of {len(want)} scores differ "
+                             "from the uninterrupted service's")
+    wp = np.percentile(wire_ms, (50, 99))
+    pp = np.percentile(proc_ms, (50, 99))
+    out = dict(events=len(head), resume=len(resume), single_bodies=half,
+               wire_ms={"p50": float(wp[0]), "p99": float(wp[1])},
+               in_process_ms={"p50": float(pp[0]), "p99": float(pp[1])},
+               train=trained_reply, learn_state=learn_stats["state"],
+               learn_state_after_boot=learn_stats2["state"], boot_s=boot_s,
+               recovery_s=rec["seconds"], replayed_records=rec["replayed_records"])
+    print(f"learn wire: FraudGateway on 127.0.0.1:{port}, the first {len(head)} events of "
+          f"the drifting stream at {WIRE_ATTACK['num_buyers']} buyers ({half} single bodies, "
+          f"then bodies of {WIRE_BATCH}) scored over POST /v1/score bit for bit as the "
+          f"in-process service; per request wire p50 "
+          f"{wp[0]:.3f} p99 {wp[1]:.3f} ms against in-process submit p50 {pp[0]:.3f} p99 "
+          f"{pp[1]:.3f} ms (keep-alive, one client); /metrics and /v1/stats from one snapshot; "
+          f"POST /admin/train: {json.dumps(trained_reply['trained'])}, state "
+          f"{learn_stats['state']}; POST /admin/checkpoint, then serve_gateway on the same "
+          f"directory restored in {boot_s:.3f} s ({rec['replayed_records']} WAL records "
+          f"replayed, learner re-attached in state {learn_stats2['state']}) and scored the next "
+          f"{len(resume)} events: all {len(want)} scores equal the uninterrupted service's bit "
+          "for bit")
+    return out
+
+
+def learn_phase(dev) -> dict:
+    """The continuous-learning plane (``repro_torch.learn``) and the HTTP
+    gateway (``repro_torch.gateway``) on the card, at the fraud width
+    (:func:`learn_service_config`), on ``benchmarks/learning_bench.py``'s
+    drifting attack stream: serve, shadow-observe and take a learner step
+    every 16 events (WAL tap -> rolling fine-tune on the card -> GBDT refit
+    on the host -> shadow-gated promotion), then an injected regression
+    on the last 40 events, rolled back.  The loop with the learn plane on
+    and off, in the order off, on, on, off: events/s, latency, per fire the
+    window, fine-tune seconds (synchronized), ms per step and refit
+    seconds, every decision, phase B's ring recall frozen against
+    recovered, the card's busy share; the launch counters zeroed just
+    before the first learn-on run and read just after, exact against the
+    count the run's own record gives (``stage2_score`` once per flush and
+    shadow batch of an MLP-headed version, ``csr_spmm`` once per stage-1
+    layer of every refresh and refit and once per GNN layer of every
+    fine-tune step, ``csr_spmm_bwd`` once per GNN layer of every step); the
+    two learn-on runs equal bit for bit, and so the two learn-off runs; the
+    incumbent's scores and leaves bit for bit across every fire.  Then one
+    window's fine-tune on the card against the host's plain path (losses,
+    leaves, the refit's embeddings), the inline fine-tune against the
+    spawned trainer's bit for bit (with the spawn-to-result seconds and the
+    child's card memory), and the gateway on 127.0.0.1: the first 2,000
+    events of the drifting stream at 400 buyers over ``POST /v1/score`` against the
+    in-process service bit for bit, wire against in-process latency,
+    ``/metrics`` and ``/v1/stats`` from one snapshot, ``/admin/train`` and
+    ``/v1/learn/stats``, ``/admin/checkpoint``, then a fresh
+    ``serve_gateway`` on the same directory restoring on the card and
+    scoring the next 500 events as the uninterrupted service does."""
+    import math
+    import shutil
+    import tempfile
+
+    import repro_torch.learn.trainer as trainer_mod
+    import repro_torch.models.hybrid as hybrid_mod
+    from repro_torch.core import lnn_init, lnn_stage2_online
+    from repro_torch.data import AttackConfig
+    from repro_torch.kernels import _build
+    from repro_torch.learn import (ContinuousLearner, RollingWindowTrainer, WindowPolicy,
+                                   drifting_attack_stream, recall_at_budget)
+    from repro_torch.learn.promote import PromotionController
+    from repro_torch.models.hybrid import HybridModel
+    from repro_torch.params import flatten_paths, from_numpy, to_numpy, tree_leaves
+    from repro_torch.service import FraudService
+    from repro_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-learn-")
+    events, patterns, split = drifting_attack_stream(AttackConfig(**LEARN_ATTACK),
+                                                     rate_per_s=LEARN_RATE)
+    is_ring = {ev.order_id: p == "ring" for ev, p in zip(events, patterns)}
+    feat_dim = int(events[0].features.shape[0])
+    sc = learn_service_config(feat_dim)
+    cfg, ls = sc.to_lnn_config(), sc.learn
+    params = lnn_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    per_step = cfg.num_gnn_layers          # csr_spmm and csr_spmm_bwd per fine-tune step
+    per_call = cfg.num_gnn_layers - 1      # csr_spmm per stage-1 call
+    cap = max(2, sc.engine.max_batch)      # rows of one shadow stage-2 call
+    main_events, tail = events[:-LEARN_TAIL], events[-LEARN_TAIL:]
+    out: dict = {"events": len(events), "split": int(split), "rate_per_s": LEARN_RATE,
+                 "config": sc.to_dict()}
+    print(f"learn world: drifting attack stream {LEARN_ATTACK}, {len(events)} events (drift at "
+          f"{split}, {sum(is_ring.values())} ring orders), gcn typed, 3 layers, hidden 64, MLP "
+          f"(64, 32); learn section {json.dumps(sc.to_dict()['learn'])}")
+
+    # a fixed probe for the incumbent: 64 requests of random KV rows on the card
+    g = torch.Generator().manual_seed(5)
+    probe = (torch.randn((64, sc.engine.k_max, cfg.hidden_dim), generator=g).to(dev),
+             (torch.rand((64, sc.engine.k_max), generator=g) > 0.3).float().to(dev),
+             torch.randn((64, feat_dim), generator=g).to(dev),
+             torch.randint(-1, len(cfg.entity_types), (64, sc.engine.k_max),
+                           generator=g).to(torch.int32).to(dev))
+
+    def probe_scores(p):
+        with torch.no_grad():
+            return lnn_stage2_online(p, cfg, *probe[:3], slot_type=probe[3]).cpu().numpy()
+
+    def live(learn: bool, count: bool, probe_fires: bool) -> dict:
+        """One pass of the stream through a fresh service (WAL and the
+        scheduled checkpointer on either way); the learn plane and the
+        injected regression when ``learn``."""
+        svc = FraudService(sc, params, device=dev).build().warmup()
+        svc.enable_wal(tempfile.mkdtemp(dir=scratch))
+        svc.enable_auto_checkpoint(every_windows=4, keep_last=3)
+        pool = svc.engine.pool
+        learner = ContinuousLearner(svc) if learn else None
+        fires: list = []
+        need = {"stage2_score": 0, "csr_spmm": 0, "csr_spmm_bwd": 0}
+        if learner is not None:
+            tr = learner.trainer
+            train, fit = tr.train, tr._fit_hybrid
+
+            def timed_train(p):
+                fires.append({"at_event": len(rows)})
+                if probe_fires:
+                    before = [t.clone() for t in tree_leaves(p)]
+                    scores = probe_scores(p)
+                t0 = time.perf_counter()
+                res = train(p)
+                fires[-1].update(window=res.window, train_s=time.perf_counter() - t0,
+                                 loss_first=res.losses[0], loss_last=res.losses[-1])
+                if probe_fires:
+                    same = (all(torch.equal(a, b) for a, b in zip(before, tree_leaves(p)))
+                            and np.array_equal(scores, probe_scores(p)))
+                    if not same:
+                        raise AssertionError("learn: a fine-tune moved the incumbent")
+                    fires[-1]["incumbent_same_bits"] = True
+                # the steps, and the hybrid refit's stage 1
+                need["csr_spmm"] += res.steps * per_step + per_call * (res.head == "hybrid")
+                need["csr_spmm_bwd"] += res.steps * per_step
+                return res
+
+            def timed_fit(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model = fit(*args)
+                torch.cuda.synchronize()
+                fires[-1]["refit_s"] = time.perf_counter() - t0
+                return model
+
+            tr.train, tr._fit_hybrid = timed_train, timed_fit
+
+        rows: list = []          # (is_ring, label, score, version, ms) per admitted response
+        iter_ms: list = []
+        step_ms: list = []
+        decisions: list = []     # (event index, decision)
+
+        def serve(ev, watcher=None):
+            mlp = not isinstance(svc.model_params(), HybridModel)
+            f0 = pool.stats["flushes"]
+            res = svc.submit(ev)
+            need["stage2_score"] += (pool.stats["flushes"] - f0) * mlp
+            observe(res)
+            return watcher.step() if watcher is not None else None
+
+        def observe(res):
+            sh = svc.shadow_stats()
+            n = svc.shadow_observe(res)
+            if n and not isinstance(svc.model_params(sh["version"]), HybridModel):
+                need["stage2_score"] += math.ceil(n / cap)
+            for r in res:
+                if r.admitted:
+                    tag = r.request.tag
+                    rows.append((float(is_ring[tag.order_id]), float(tag.label),
+                                 float(r.score), int(r.model_version),
+                                 (r.queued_s + r.service_s) * 1e3))
+
+        def drain():
+            mlp = not isinstance(svc.model_params(), HybridModel)
+            f0 = pool.stats["flushes"]
+            res = svc.drain()
+            need["stage2_score"] += (pool.stats["flushes"] - f0) * mlp
+            observe(res)
+
+        torch.cuda.synchronize()
+        if count:
+            _build.reset_launches()
+        st1_0 = svc.engine.refresher.stats["stage1_launches"]
+        with _BusySampler() as busy:
+            t0 = time.perf_counter()
+            for i, ev in enumerate(main_events):
+                t1 = time.perf_counter()
+                serve(ev)
+                if learner is not None and (i + 1) % LEARN_STEP_EVERY == 0:
+                    t2 = time.perf_counter()
+                    d = learner.step()["decision"]
+                    step_ms.append((time.perf_counter() - t2) * 1e3)
+                    if d:
+                        decisions.append((i, d))
+                iter_ms.append((time.perf_counter() - t1) * 1e3)
+            drain()
+            if learner is not None:
+                d = learner.step()["decision"]
+                if d:
+                    decisions.append((len(main_events) - 1, d))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        main_rows = len(rows)
+        row = {"learn": learn, "wall_s": wall, "events_per_s": len(main_events) / wall,
+               "busy_share": busy.share, "busy_samples": busy.samples}
+        if learner is not None:
+            # the injected regression: a perturbed clone of the promotee
+            promoted = svc.model_version
+            bad = svc.register_perturbed(promoted, scale=3.0, seed=0)
+            svc.activate_model(bad)
+            svc.enable_shadow(promoted, fraction=1.0, threshold=0.25, collect_eval=96,
+                              role="last_good")
+            watcher = PromotionController.attach(svc, watch_min_eval=8, rollback_margin=0.10)
+            rolled = None
+            for j, ev in enumerate(tail):
+                rolled = serve(ev, watcher)
+                if rolled is not None:
+                    break
+            drain()
+            if not (rolled and rolled["action"] == "rollback"
+                    and svc.model_version == promoted and svc.stats().rollbacks >= 1):
+                raise AssertionError(f"learn: the injected regression was not rolled back "
+                                     f"({rolled})")
+            row["regression"] = {"promoted": promoted, "bad": bad, "after_events": j + 1,
+                                 "decision": rolled}
+            learner.close()
+        else:
+            for ev in tail:
+                serve(ev)
+            drain()
+        torch.cuda.synchronize()
+        st1 = svc.engine.refresher.stats["stage1_launches"] - st1_0
+        need["csr_spmm"] += st1 * per_call
+        lat = np.asarray([r[4] for r in rows[:main_rows]])
+        row.update(stage1_calls=st1, flushes=pool.stats["flushes"], need=need, fires=fires,
+                   decisions=decisions, iter_ms=iter_ms, step_ms=step_ms,
+                   latency_ms={"p50": float(np.percentile(lat, 50)),
+                               "p99": float(np.percentile(lat, 99))},
+                   scores=[(r[2], r[3]) for r in rows])
+        if count:
+            row["launches"] = dict(_build.LAUNCHES)
+            got = {k: row["launches"][k] for k in need}
+            if got != need:
+                raise AssertionError(f"learn: launches {got}, the run's record needs {need}")
+        row["window"] = learner.trainer._window() if learner is not None else None
+        # recall: phase-B responses of a pre-drift version (frozen) against a
+        # post-drift promotee's (recovered), on the main loop's responses
+        if learner is not None:
+            promos = [(i, d) for i, d in decisions if d.get("action") == "promote"]
+            pre = {0} | {d["candidate"] for i, d in promos if i < split}
+            b_rows = rows[split:main_rows]
+            frozen = [(r[0], r[2]) for r in b_rows if r[3] in pre]
+            recovered = [(r[0], r[2]) for r in b_rows if r[3] not in pre]
+
+            def recall(rs):
+                return (float("nan") if not rs else
+                        recall_at_budget([r[0] for r in rs], [r[1] for r in rs], LEARN_BUDGET))
+
+            row.update(frozen_ring_recall=recall(frozen), recovered_ring_recall=recall(recovered),
+                       frozen_n=len(frozen), recovered_n=len(recovered),
+                       promotions_after_drift=sum(1 for i, _ in promos if i >= split))
+            if not row["promotions_after_drift"]:
+                raise AssertionError("learn: no shadow-gated promotion after the drift")
+        svc.close()
+        return row
+
+    real_fine_tune = trainer_mod._fine_tune
+    fire_times: list = []
+
+    def timed_fine_tune(p, c, pg, optimizer, lr, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_fine_tune(p, c, pg, optimizer, lr, steps)
+        torch.cuda.synchronize()
+        fire_times.append((time.perf_counter() - t0, steps, pg.num_nodes))
+        return res
+
+    trainer_mod._fine_tune = timed_fine_tune
+    try:
+        runs = []
+        for learn, count, probe_fires in ((False, False, False), (True, True, False),
+                                          (True, False, True), (False, False, False)):
+            n0 = len(fire_times)
+            row = live(learn, count, probe_fires)
+            for f, (secs, steps, nodes) in zip(row["fires"], fire_times[n0:]):
+                f.update(fine_tune_s=secs, ms_per_step=secs / steps * 1e3, steps=steps,
+                         graph_nodes=nodes)
+            runs.append(row)
+    finally:
+        trainer_mod._fine_tune = real_fine_tune
+    off, on, on2, off2 = runs
+    for a, b, what in ((on, on2, "learn-on"), (off, off2, "learn-off")):
+        if a["scores"] != b["scores"] or a["decisions"] != b["decisions"]:
+            first = next((i for i, (x, y) in enumerate(zip(a["scores"], b["scores"])) if x != y),
+                         min(len(a["scores"]), len(b["scores"])))
+            raise AssertionError(
+                f"learn: the two {what} runs differ from response {first} on "
+                f"({len(a['scores'])} and {len(b['scores'])} responses); decisions "
+                f"{[(i, d['action']) for i, d in a['decisions']]} and "
+                f"{[(i, d['action']) for i, d in b['decisions']]}")
+    if not all(f.get("incumbent_same_bits") for f in on2["fires"]):
+        raise AssertionError("learn: a fire went without the incumbent check")
+    for row in runs:
+        it = np.asarray(row["iter_ms"])
+        busy = "not measured" if row["busy_share"] is None else f"{row['busy_share']:.1%}"
+        row["iter_ms_pct"] = {q: float(np.percentile(it, p))
+                              for q, p in (("p50", 50), ("p99", 99))}
+        row["iter_ms_pct"]["max"] = float(it.max())
+        print(f"learn loop ({'on' if row['learn'] else 'off'}): {len(main_events)} events in "
+              f"{row['wall_s']:.3f} s ({row['events_per_s']:.1f} events/s, wall, the learner's "
+              f"steps included), per event wall p50 {row['iter_ms_pct']['p50']:.3f} p99 "
+              f"{row['iter_ms_pct']['p99']:.3f} max {row['iter_ms_pct']['max']:.1f} ms, response "
+              f"latency p50 {row['latency_ms']['p50']:.3f} p99 {row['latency_ms']['p99']:.3f} ms "
+              f"(virtual queueing + measured service), {row['flushes']} flushes, "
+              f"{row['stage1_calls']} stage-1 calls, {len(row['fires'])} fires, card busy {busy} "
+              f"({row['busy_samples']} nvidia-smi samples)")
+    for f in on["fires"]:
+        print(f"learn fire after event {f['at_event']}: window {f['window']}, graph "
+              f"{f['graph_nodes']} nodes, fine-tune {f['fine_tune_s']:.3f} s ({f['steps']} steps, "
+              f"{f['ms_per_step']:.2f} ms a step, synchronized), GBDT refit "
+              f"{f['refit_s']:.3f} s, loss {f['loss_first']:.4f} -> {f['loss_last']:.4f}")
+    for i, d in on["decisions"]:
+        keep = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in d.items()}
+        print(f"learn decision after event {i}: {json.dumps(keep)}")
+    reg = on["regression"]
+    print(f"learn: phase B ring recall@{LEARN_BUDGET}: frozen {on['frozen_ring_recall']:.3f} "
+          f"({on['frozen_n']} responses) -> recovered {on['recovered_ring_recall']:.3f} "
+          f"({on['recovered_n']}); {on['promotions_after_drift']} promotion(s) after the drift; "
+          f"injected regression v{reg['bad']} rolled back to v{reg['promoted']} after "
+          f"{reg['after_events']} events ({reg['decision']['reason']})")
+    steps_ms = np.asarray(on["step_ms"])
+    print(f"learn: learn-on/learn-off events/s {on['events_per_s'] / off['events_per_s']:.3f} "
+          f"and {on2['events_per_s'] / off2['events_per_s']:.3f} (in the order off, on, on, "
+          f"off: {off['events_per_s']:.1f}, {on['events_per_s']:.1f}, "
+          f"{on2['events_per_s']:.1f}, {off2['events_per_s']:.1f}); a learner step p50 "
+          f"{np.percentile(steps_ms, 50):.3f} ms, max {steps_ms.max():.1f} ms (a fire)")
+    print(f"learn launches (learn-on run 1): {json.dumps(on['launches'])} = the run's record "
+          f"{json.dumps(on['need'])}: stage2_score once per flush and shadow batch of an "
+          f"MLP-headed version, csr_spmm {per_call} per stage-1 call ({on['stage1_calls']} "
+          f"refresh calls, one refit a fire) and {per_step} per fine-tune step, csr_spmm_bwd "
+          f"{per_step} per step; the two learn-on runs and the two learn-off runs equal bit "
+          f"for bit; the incumbent's 64 probe scores and every leaf the same bits across "
+          f"each of the {len(on2['fires'])} fires of run 2")
+    out["runs"] = [{k: v for k, v in row.items()
+                    if k not in ("scores", "iter_ms", "step_ms", "window")} for row in runs]
+
+    # ---- one window: the card against the host's plain path
+    window = on["window"]
+    rows_ = [(e.snapshot, e.arrival, e.entities, e.features, e.label) for e in window]
+    mat = dict(entity_history=sc.engine.entity_history, max_history=sc.engine.max_history,
+               max_deg=sc.engine.max_deg)
+    _, pg_c = trainer_mod._materialize_window(cfg, rows_, device=dev, **mat)
+    _, pg_h = trainer_mod._materialize_window(cfg, rows_, device="cpu", **mat)
+    params_h = from_numpy(to_numpy(params), "cpu")
+    tuned_c, loss_c = trainer_mod._fine_tune(params, cfg, pg_c, ls.optimizer, ls.lr,
+                                             LEARN_CHECK_STEPS)
+    tuned_h, loss_h = trainer_mod._fine_tune(params_h, cfg, pg_h, ls.optimizer, ls.lr,
+                                             LEARN_CHECK_STEPS)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(loss_c, loss_h))
+    host = dict(flatten_paths(to_numpy(tuned_h)))
+    leaf_gap, worst = 0.0, ""
+    for key, leaf in flatten_paths(to_numpy(tuned_c)):
+        gap = float(np.abs(leaf.astype(np.float64) - host[key]).max()) / \
+            float(np.abs(host[key]).max())
+        if gap > leaf_gap:
+            leaf_gap, worst = gap, key
+    if not (loss_gap <= LEARN_LOSS_RTOL and leaf_gap <= LEARN_LEAF_TOL):
+        raise AssertionError(f"learn card vs host: losses {loss_gap:.3e} relative, leaf {worst} "
+                             f"{leaf_gap:.3e} of its scale")
+    seen: list = []          # the refit's embeddings: the card's, then the host's
+    real_hybrid = hybrid_mod.train_hybrid
+
+    def capture(p, c, emb, labels, **kw):
+        seen.append(emb)
+        return real_hybrid(p, c, emb, labels, **kw)
+
+    hybrid_mod.train_hybrid = capture
+    try:
+        for device, tuned, pg in ((dev, tuned_c, pg_c), ("cpu", tuned_c, pg_h)):
+            tr = RollingWindowTrainer(cfg, head="hybrid", gbdt_trees=ls.gbdt_trees,
+                                      k_max=sc.engine.k_max, max_deg=sc.engine.max_deg,
+                                      device=device)
+            tr._fit_hybrid(from_numpy(to_numpy(tuned), device),
+                           *tr._materialize(window))
+    finally:
+        hybrid_mod.train_hybrid = real_hybrid
+    embed_gap = float(np.abs(seen[0] - seen[1]).max())
+    if not embed_gap <= LEARN_EMBED_TOL:
+        raise AssertionError(f"learn card vs host: refit embeddings differ by {embed_gap:.3e}")
+    out["card_vs_host"] = dict(window=len(window), graph_nodes=pg_c.num_nodes,
+                               steps=LEARN_CHECK_STEPS, losses_card=loss_c, losses_host=loss_h,
+                               loss_rel_gap=loss_gap, leaf_gap_of_scale=leaf_gap,
+                               worst_leaf=worst, embed_gap=embed_gap)
+    print(f"learn card vs host ({len(window)}-example window, {pg_c.num_nodes} nodes, "
+          f"{LEARN_CHECK_STEPS} {ls.optimizer} steps from one warm start): losses "
+          f"{', '.join(f'{x:.6f}' for x in loss_c)} within {loss_gap:.2e} relative, tuned leaves "
+          f"within {leaf_gap:.2e} of their scale (worst {worst}), refit embeddings within "
+          f"{embed_gap:.2e}")
+
+    # ---- the inline fine-tune against the spawned trainer's, on the card
+    trained = {}
+    for in_process in (False, True):
+        tr = RollingWindowTrainer(
+            cfg, WindowPolicy(min_window=ls.min_window, max_window=ls.max_window,
+                              stride=ls.stride), optimizer=ls.optimizer, lr=ls.lr,
+            steps=ls.steps, head="hybrid", gbdt_trees=ls.gbdt_trees, k_max=sc.engine.k_max,
+            max_deg=sc.engine.max_deg, in_process=in_process, device=dev)
+        tr.extend(window)
+        child = tr._train_in_process
+        spawn: dict = {}
+
+        def timed_child(p, w, child=child, spawn=spawn):
+            t0 = time.perf_counter()
+            with _MemorySampler() as mem:
+                res = child(p, w)
+            spawn.update(seconds=time.perf_counter() - t0, card_mib_added=mem.added,
+                         compute_apps_mib=mem.apps)
+            return res
+
+        tr._train_in_process = timed_child
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.train(params)
+        torch.cuda.synchronize()
+        path = Path(scratch) / f"tuned-{in_process}.npz"
+        save_checkpoint(str(path), res.params)
+        with np.load(path) as z:
+            blobs = {k: z[k].tobytes() for k in z.files}
+        trained[in_process] = dict(losses=res.losses, blobs=blobs, seconds=time.perf_counter() - t0,
+                                   spawn=spawn, gbdt=res.model.gbdt)
+    inl, chl = trained[False], trained[True]
+    probe_x = np.random.default_rng(0).normal(0, 1, (64, cfg.hidden_dim + feat_dim))
+    if not (inl["losses"] == chl["losses"] and inl["blobs"] == chl["blobs"]
+            and np.array_equal(inl["gbdt"].predict_proba(probe_x),
+                               chl["gbdt"].predict_proba(probe_x))):
+        raise AssertionError("learn: the spawned trainer's fine-tune differs from the inline one")
+    sp = chl["spawn"]
+    mem = "not measured" if sp["card_mib_added"] is None else f"+{sp['card_mib_added']:.0f} MiB"
+    out["in_process"] = dict(window=len(window), steps=ls.steps, inline_s=inl["seconds"],
+                             in_process_s=chl["seconds"], spawn_to_result_s=sp["seconds"],
+                             card_mib_added=sp["card_mib_added"],
+                             compute_apps_mib=sp["compute_apps_mib"])
+    print(f"learn in-process ({len(window)}-example window, {ls.steps} steps, hybrid head): the "
+          f"spawned trainer's {len(chl['losses'])} losses and {len(chl['blobs'])} tuned leaves "
+          f"(npz bytes) and its refit's trees equal the inline fine-tune's bit for bit; a fire "
+          f"takes {inl['seconds']:.3f} s inline and {chl['seconds']:.3f} s in-process, of which "
+          f"spawn to result {sp['seconds']:.3f} s; the child's card memory {mem} at its peak "
+          f"(nvidia-smi memory.used), compute apps (pid: MiB) {sp['compute_apps_mib']}")
+
+    out["wire"] = learn_wire(dev, params, feat_dim, scratch)
+    shutil.rmtree(scratch, ignore_errors=True)
+    out["launches"] = {name: on["launches"].get(name, 0) for name in _build.LAUNCHES}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"learn phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2490,6 +3167,9 @@ def main() -> int:
         return 0
     if "--procs" in sys.argv[1:]:
         procs_phase(dev)
+        return 0
+    if "--learn" in sys.argv[1:]:
+        learn_phase(dev)
         return 0
 
     # ----------------------------------------------------------------- data
@@ -2626,6 +3306,12 @@ def main() -> int:
         launches[name] += c
     print("procs: " + json.dumps(procs))
 
+    # ------------------------------- 12. the learn plane and the gateway
+    learn = learn_phase(dev)
+    for name, c in learn["launches"].items():
+        launches[name] += c
+    print("learn: " + json.dumps(learn))
+
     # ---------------------------------------------------------- 9. training
     results.update(training(dev, batches, split, feat_dim))
     for name, c in results["table3"]["launches"].items():
@@ -2712,6 +3398,7 @@ def main() -> int:
         entry["stream_launches"] = stream["launches"][entry["name"]]
         entry["service_launches"] = service["launches"][entry["name"]]
         entry["procs_launches"] = procs["launches"][entry["name"]]
+        entry["learn_launches"] = learn["launches"][entry["name"]]
         case = stream["kernel_cases"].get(entry["name"])
         if case is not None:
             entry["stream_case"] = {k: case[k] for k in case_keys}

@@ -16,8 +16,9 @@ loads (``to_json`` of one config gives the same text in both):
 * :class:`GatewaySection`   — the HTTP front-end's knobs;
 * :class:`LearnSection`     — the continuous-learning plane's knobs.
 
-The port has no HTTP front-end and no learning plane yet (ROADMAP.md queue
-1); their sections are kept so that an artifact round-trips whole.
+The last two configure the port's HTTP front-end (``repro_torch.gateway``:
+``serve_gateway`` reads ``config.gateway``) and its continuous-learning
+plane (``repro_torch.learn``: ``ContinuousLearner`` reads ``config.learn``).
 
 The tree round-trips through ``to_dict``/``from_dict`` and JSON
 (``to_json``/``from_json``, ``save``/``load``), with **unknown-key
@@ -235,7 +236,8 @@ class AdmissionSection:
 
 @dataclass(frozen=True)
 class GatewaySection:
-    """HTTP front-end knobs (the reference's ``repro.gateway``; not ported yet).
+    """HTTP front-end knobs, read by ``repro_torch.gateway`` (``FraudGateway``,
+    ``serve_gateway``).
 
     * ``host`` / ``port`` — bind address; port 0 asks the kernel for an
       ephemeral port (tests, CI smoke) which ``FraudGateway.port`` reports.
@@ -309,8 +311,8 @@ class GatewaySection:
 
 @dataclass(frozen=True)
 class LearnSection:
-    """Continuous-learning plane knobs (the reference's ``repro.learn``; not
-    ported yet).
+    """Continuous-learning plane knobs, read by ``repro_torch.learn``
+    (``ContinuousLearner``).
 
     The WAL training tap, rolling-window trainer, and shadow-gated
     promotion controller are configured here; ``enabled=True`` makes

@@ -23,6 +23,8 @@ from repro_torch.baselines import MLPConfig, mlp_init, train_mlp
 from repro_torch.kernels.csr_spmm import (csr_spmm_bwd_cuda, csr_spmm_cuda,
                                           csr_spmm_etype_mean_bwd_cuda, csr_spmm_etype_mean_cuda)
 from repro_torch.configs import get_config
+from repro_torch.gateway import serve_gateway
+from repro_torch.learn import ContinuousLearner, RollingWindowTrainer
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_bwd_cuda, edge_softmax_agg_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
@@ -90,7 +92,9 @@ def _tiny_graph():
                                    "WorkerPool", "FraudService", "FraudService.restore",
                                    "FraudService.from_artifact", "build_service",
                                    "train_hybrid", "ProcessWorkerPool", "ShardServer",
-                                   "serve_paper", "paper serve main"])
+                                   "serve_paper", "paper serve main",
+                                   "RollingWindowTrainer", "serve_gateway",
+                                   "serve_gateway restore"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_path):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     zoo = get_config("zamba2-1.2b").reduced()
@@ -123,6 +127,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_p
         "ShardServer": lambda: ShardServer(0, cfg, dict(dim=4), 8, 4, "v0.npz", 0),
         "serve_paper": lambda: zoo_serve.serve_paper(60, 2),
         "paper serve main": lambda: zoo_serve.main([]),
+        "RollingWindowTrainer": lambda: RollingWindowTrainer(cfg),
+        "serve_gateway": lambda: serve_gateway(ServiceConfig(), {}),
+        "serve_gateway restore": lambda: serve_gateway(
+            ServiceConfig(gateway={"checkpoint_dir": str(tmp_path)}), None),
     }
     artifact = str(tmp_path / "service.json")
     ServiceConfig().save(artifact)
@@ -130,7 +138,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_p
         calls[entry]()
 
 
-def test_entry_points_run_on_cpu_when_asked(no_cuda):
+def test_entry_points_run_on_cpu_when_asked(no_cuda, tmp_path):
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     params = lnn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert params["input"]["w"].device.type == "cpu"
@@ -152,6 +160,16 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
     hy = train_hybrid(to_numpy(params), cfg, np.zeros((4, 6)), np.array([0.0, 1, 0, 1]),
                       device="cpu")
     assert hy.lnn_params["input"]["w"].device.type == "cpu"
+    assert RollingWindowTrainer(cfg, device="cpu").device.type == "cpu"
+    # the learn plane runs where its service runs (CUDA by default, above)
+    svc.enable_wal(str(tmp_path / "wal"))
+    learner = ContinuousLearner(svc)
+    assert learner.trainer.device.type == "cpu"
+    learner.close()
+    svc.close()
+    gw = serve_gateway(sc, params, warmup=False, device="cpu")
+    gw.close()
+    assert gw.service.device.type == "cpu"
 
 
 def test_streaming_refuses_what_comes_with_the_service_layer():
