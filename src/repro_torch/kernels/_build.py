@@ -110,17 +110,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
-    for name in ("csr_spmm_etype_mean_f32", "csr_spmm_etype_mean_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        fn.restype = i
-    lib.edge_softmax_agg_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.csr_spmm_etype_mean_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.csr_spmm_etype_mean_f32.restype = i
+    lib.csr_spmm_etype_mean_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.csr_spmm_etype_mean_bf16.restype = i
+    lib.edge_softmax_agg_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.edge_softmax_agg_f32.restype = i
     lib.csr_spmm_bwd_f32.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.csr_spmm_bwd_f32.restype = i
-    lib.csr_spmm_etype_mean_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.csr_spmm_etype_mean_bwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.csr_spmm_etype_mean_bwd_f32.restype = i
-    lib.edge_softmax_agg_bwd_f32.argtypes = [p] * 14 + [i, i, i, p]
+    lib.edge_softmax_agg_bwd_f32.argtypes = [p] * 15 + [i, i, i, p]
     lib.edge_softmax_agg_bwd_f32.restype = i
     lib.stage2_score_f32.argtypes = [p, p]
     lib.stage2_score_f32.restype = i

@@ -124,7 +124,8 @@ template <typename T, int VEC, int NP>
 __global__ void __launch_bounds__(kWarps * 32)
     csr_spmm_etype_mean_kernel(const T* __restrict__ h, const int* __restrict__ idx,
                                const float* __restrict__ mask, const int* __restrict__ etype,
-                               T* __restrict__ out, int n, int d, int hdim, int ntypes) {
+                               T* __restrict__ out, float* __restrict__ wslot, int n, int d,
+                               int hdim, int ntypes) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n) return;  // uniform across the warp
@@ -138,6 +139,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   type_counts(ri, rm, re, s0, d, n, ntypes, cnt);
   auto weight = [&](const TypedSlot& s) { return slot_weight(s, cnt); };
   const float w0 = weight(s0);
+  if (wslot != nullptr && lane < d) wslot[base + lane] = w0;   // under grad only
   const unsigned valid0 = __ballot_sync(kFull, is_valid(s0));
   for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
     const int first = col0 + lane * VEC;
@@ -150,8 +152,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     gather_slots<T, VEC, NP>(h, hdim, first, valid0, s0.src, w0, s0.type, add);
     for (int k0 = 32; k0 < d; k0 += 32) {
       const TypedSlot s = typed_slot(ri, rm, re, k0 + lane, d, n, ntypes);
-      gather_slots<T, VEC, NP>(h, hdim, first, __ballot_sync(kFull, is_valid(s)), s.src,
-                               weight(s), s.type, add);
+      const float wk = weight(s);
+      if (wslot != nullptr && col0 == 0 && k0 + lane < d) wslot[base + k0 + lane] = wk;
+      gather_slots<T, VEC, NP>(h, hdim, first, __ballot_sync(kFull, is_valid(s)), s.src, wk,
+                               s.type, add);
     }
 #pragma unroll
     for (int e = 0; e < kMaxTypes; ++e)
@@ -165,61 +169,88 @@ __global__ void __launch_bounds__(kWarps * 32)
 //
 //     csr_spmm:             dh[j, :] = sum over (i, k) -> j of w[i, k] * dout[i, :]
 //     csr_spmm_etype_mean:  dh[j, :] = sum over (i, k) -> j of
-//                                      mask[i, k] / cnt[i, e] * dout[e, i, :],  e = etype[i, k]
+//                                      wslot[i, k] * dout[etype[i, k], i, :]
 //
-// The reference has no backward kernel: it differentiates its XLA path
-// (jnp.take + einsum), whose scatter-add sums in a fixed order.  Here each
-// sum runs over the graph's reverse-slot index (rev_row_sum in
-// nbr_slots.cuh), a warp per source row, so the bits do not change from call
-// to call.  The weights must be zero outside the index's slots (mask > 0).
-// The per-type entry first writes each slot's weight mask / cnt[type] (a
-// warp per node row, the forward's arithmetic) into a scratch [N, D], then
-// sums: two launches.  Bound, as the forward: bytes, and at the main path's
-// shape the launch and its chain of dependent loads.
+// where wslot[i, k] = mask[i, k] / cnt[i, etype[i, k]] is the weight the
+// forward gave the slot (it writes wslot under grad; a type outside [0, E)
+// adds nothing).  The reference has no backward kernel: it differentiates
+// its XLA path (jnp.take + einsum), whose scatter-add sums in a fixed
+// order.  Here a warp per source row j sums over the graph's reverse-slot
+// index rev_slot[rev_ptr[j] .. rev_ptr[j + 1]) (the flat slots i * d + k
+// whose clamped index is j, ascending), a lane per slot, so two calls give
+// the same bits (no atomics).  The weights must be zero outside the
+// index's slots.  One launch for either entry.
+//
+// Bound, as the forward: bytes (well under a microsecond at the main path's
+// shape), and in practice the launch and the chain of dependent loads: the
+// row's rev_ptr, its slots, then (for the per-type entry, the slots' types,
+// then) the rows of dout, all of one source row's gathers in flight at once
+// (gather_rows, up to flight_rows of them; the single entry issues them
+// beside its weight loads), summed in slot order.
 // ---------------------------------------------------------------------------
 
-template <int VEC, int NP>
+template <int VEC, int NP, bool TYPED>
 __global__ void __launch_bounds__(kWarps * 32)
     csr_spmm_bwd_kernel(const float* __restrict__ dout, const int* __restrict__ rev_ptr,
                         const int* __restrict__ rev_slot, const float* __restrict__ w,
                         const int* __restrict__ etype, int ntypes, float* __restrict__ dh,
                         int n, int d, int hdim) {
+  constexpr int R = flight_rows<VEC, NP>(1);
+  const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (j >= n) return;  // uniform across the warp
-  rev_row_sum<VEC, NP>(dout, rev_ptr, rev_slot, w, etype, ntypes, nullptr, dh, nullptr, j, n, d,
-                       hdim);
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-    etype_mean_weights_kernel(const int* __restrict__ idx, const float* __restrict__ mask,
-                              const int* __restrict__ etype, float* __restrict__ wslot, int n,
-                              int d, int ntypes) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;  // uniform across the warp
-  const size_t base = (size_t)row * d;
-  const int* ri = idx + base;
-  const float* rm = mask + base;
-  const int* re = etype + base;
-  const TypedSlot s0 = typed_slot(ri, rm, re, lane, d, n, ntypes);
-  float cnt[kMaxTypes];
-  type_counts(ri, rm, re, s0, d, n, ntypes, cnt);
-  for (int k0 = 0; k0 < d; k0 += 32) {
-    const int k = k0 + lane;
-    if (k < d)
-      wslot[base + k] =
-          slot_weight(k0 == 0 ? s0 : typed_slot(ri, rm, re, k, d, n, ntypes), cnt);
+  const int q0 = rev_ptr[j], q1 = rev_ptr[j + 1];
+  for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
+    const int first = col0 + lane * VEC;
+    float acc[NP][VEC] = {};
+    for (int q = q0; q < q1; q += 32) {
+      const int cnt = min(32, q1 - q);
+      int row = 0;
+      float wq = 0.f;
+      if (lane < cnt) {
+        const int s = rev_slot[q + lane];
+        wq = w[s];
+        int plane = 0;
+        if constexpr (TYPED) {
+          plane = etype[s];
+          if (plane < 0 || plane >= ntypes) {
+            plane = 0;
+            wq = 0.f;
+          }
+        }
+        row = plane * n + s / d;
+      }
+      for (int base = 0; base < cnt; base += R) {
+        with_group<R>(cnt - base, [&](auto group) {
+          constexpr int G = decltype(group)::value;
+          RawVec<float, VEC> r[G][NP];
+          gather_rows<VEC, NP, G>(dout, hdim, first, row, base, cnt, r);
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            const float wu = __shfl_sync(kFull, wq, (base + u) & 31);
+            if (base + u < cnt) {
+              float x[NP][VEC];
+#pragma unroll
+              for (int p = 0; p < NP; ++p) widen<float, VEC>(r[u][p], x[p]);
+              fma_cols(acc, wu, x);
+            }
+          }
+        });
+      }
+    }
+    store_cols<float, VEC, NP>(dh + (size_t)j * hdim, first, hdim, acc);
   }
 }
 
 int grid_rows(int n) { return (n + kWarps - 1) / kWarps; }
 
+template <bool TYPED>
 int launch_bwd(const void* dout, const void* rev_ptr, const void* rev_slot, const void* w,
                const void* etype, int ntypes, void* dh, int n, int d, int hdim, void* stream) {
   int vec, np;
   pick_cols(hdim, (int)sizeof(float), dout, dh, &vec, &np);
   return dispatch_cols<float>(vec, np, [&](auto v, auto p) {
-    csr_spmm_bwd_kernel<decltype(v)::value, decltype(p)::value>
+    csr_spmm_bwd_kernel<decltype(v)::value, decltype(p)::value, TYPED>
         <<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
             (const float*)dout, (const int*)rev_ptr, (const int*)rev_slot, (const float*)w,
             (const int*)etype, ntypes, (float*)dh, n, d, hdim);
@@ -243,7 +274,7 @@ int launch(const void* h, const void* idx, const void* w, void* out, int n, int 
 
 template <typename T>
 int launch_etype_mean(const void* h, const void* idx, const void* mask, const void* etype,
-                      void* out, int n, int d, int hdim, int ntypes, void* stream) {
+                      void* out, void* wslot, int n, int d, int hdim, int ntypes, void* stream) {
   if (n <= 0 || d < 0 || hdim <= 0 || ntypes < 1 || ntypes > kMaxTypes)
     return (int)cudaErrorInvalidValue;
   int vec, np;
@@ -251,8 +282,8 @@ int launch_etype_mean(const void* h, const void* idx, const void* mask, const vo
   return dispatch_cols<T>(vec, np, [&](auto v, auto p) {
     csr_spmm_etype_mean_kernel<T, decltype(v)::value, decltype(p)::value>
         <<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
-            (const T*)h, (const int*)idx, (const float*)mask, (const int*)etype, (T*)out, n, d,
-            hdim, ntypes);
+            (const T*)h, (const int*)idx, (const float*)mask, (const int*)etype, (T*)out,
+            (float*)wslot, n, d, hdim, ntypes);
     return (int)cudaGetLastError();
   });
 }
@@ -269,16 +300,18 @@ extern "C" int csr_spmm_bf16(const void* h, const void* idx, const void* w, void
   return launch<__nv_bfloat16>(h, idx, w, out, n, d, hdim, stream);
 }
 
+// wslot: null for the forward alone; under grad an [N, D] f32 buffer that
+// receives each slot's weight mask / cnt[type] for the backward
 extern "C" int csr_spmm_etype_mean_f32(const void* h, const void* idx, const void* mask,
-                                       const void* etype, void* out, int n, int d, int hdim,
-                                       int ntypes, void* stream) {
-  return launch_etype_mean<float>(h, idx, mask, etype, out, n, d, hdim, ntypes, stream);
+                                       const void* etype, void* out, void* wslot, int n, int d,
+                                       int hdim, int ntypes, void* stream) {
+  return launch_etype_mean<float>(h, idx, mask, etype, out, wslot, n, d, hdim, ntypes, stream);
 }
 
 extern "C" int csr_spmm_etype_mean_bf16(const void* h, const void* idx, const void* mask,
                                         const void* etype, void* out, int n, int d, int hdim,
                                         int ntypes, void* stream) {
-  return launch_etype_mean<__nv_bfloat16>(h, idx, mask, etype, out, n, d, hdim, ntypes,
+  return launch_etype_mean<__nv_bfloat16>(h, idx, mask, etype, out, nullptr, n, d, hdim, ntypes,
                                           stream);
 }
 
@@ -286,18 +319,15 @@ extern "C" int csr_spmm_bwd_f32(const void* dout, const void* w, const void* rev
                                 const void* rev_slot, void* dh, int n, int d, int hdim,
                                 void* stream) {
   if (n <= 0 || d <= 0 || hdim <= 0) return (int)cudaErrorInvalidValue;
-  return launch_bwd(dout, rev_ptr, rev_slot, w, nullptr, 1, dh, n, d, hdim, stream);
+  return launch_bwd<false>(dout, rev_ptr, rev_slot, w, nullptr, 1, dh, n, d, hdim, stream);
 }
 
-extern "C" int csr_spmm_etype_mean_bwd_f32(const void* dout, const void* idx, const void* mask,
+// wslot: the weights the forward wrote under grad; dout [ntypes, N, H]
+extern "C" int csr_spmm_etype_mean_bwd_f32(const void* dout, const void* wslot,
                                            const void* etype, const void* rev_ptr,
-                                           const void* rev_slot, void* wslot, void* dh, int n,
-                                           int d, int hdim, int ntypes, void* stream) {
+                                           const void* rev_slot, void* dh, int n, int d,
+                                           int hdim, int ntypes, void* stream) {
   if (n <= 0 || d <= 0 || hdim <= 0 || ntypes < 1 || ntypes > kMaxTypes)
     return (int)cudaErrorInvalidValue;
-  etype_mean_weights_kernel<<<grid_rows(n), kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)idx, (const float*)mask, (const int*)etype, (float*)wslot, n, d, ntypes);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return launch_bwd(dout, rev_ptr, rev_slot, wslot, etype, ntypes, dh, n, d, hdim, stream);
+  return launch_bwd<true>(dout, rev_ptr, rev_slot, wslot, etype, ntypes, dh, n, d, hdim, stream);
 }

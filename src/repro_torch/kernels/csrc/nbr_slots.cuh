@@ -165,60 +165,102 @@ __device__ __forceinline__ void fma_cols(float (&acc)[NP][VEC], float w,
     for (int i = 0; i < VEC; ++i) acc[p][i] = fmaf(x[p][i], w, acc[p][i]);
 }
 
-// The backward kernels' source pass: this warp's source row j gets
-//
-//     out[j, :]  = sum over j's reverse slots s of  w[s] * g[plane(s) * n + s / d, :]
-//     out_s[j]   = sum over j's reverse slots s of  scal[s]        (where scal is given)
-//
-// over rev_slot[rev_ptr[j] .. rev_ptr[j + 1]), the flat slots i * d + k whose
-// clamped index is j, in ascending order (kernels.ref.reverse_slots_ref).
-// plane(s) is etype[s] where etype is given (a slot whose type lies outside
-// [0, ntypes) adds nothing), else 0.  The slots are read 32 at a time, a lane
-// per slot, and the rows of g gathered as the forward gathers rows of h: a
-// ballot of the non-zero weights, kUnroll in flight, added in slot order.
-// Every sum is taken in one fixed order, so two calls give the same bits
-// (no atomics).  A row with no slot writes zeros.
+// The backward kernels gather rows by the graph's reverse-slot index: lane u
+// of a warp holds the row of one reverse slot, and the warp gathers up to
+// flight_rows such rows at once, every load issued before any is used, so a
+// source row of in-degree <= flight_rows waits for one gather round trip
+// (the forward's kUnroll = 4 groups would make it wait for several).  The
+// budget keeps the raw rows in flight within kFlightRegs registers a lane;
+// with_group sizes each group to the rows it has.
+constexpr int kFlightRegs = 64;
+
 template <int VEC, int NP>
-__device__ __forceinline__ void rev_row_sum(const float* __restrict__ g,
-                                            const int* __restrict__ rev_ptr,
-                                            const int* __restrict__ rev_slot,
-                                            const float* __restrict__ w,
-                                            const int* __restrict__ etype, int ntypes,
-                                            const float* __restrict__ scal,
-                                            float* __restrict__ out,
-                                            float* __restrict__ out_s, int j, int n, int d,
-                                            int hdim) {
-  const int lane = threadIdx.x & 31;
-  const int q0 = rev_ptr[j], q1 = rev_ptr[j + 1];
-  float s_acc = 0.f;
-  for (int col0 = 0; col0 < hdim; col0 += 32 * VEC * NP) {
-    const int first = col0 + lane * VEC;
-    float acc[NP][VEC] = {};
-    auto add = [&](int, float wj, const float(&x)[NP][VEC]) { fma_cols(acc, wj, x); };
-    for (int q = q0; q < q1; q += 32) {
-      int row = 0;
-      float wq = 0.f, sq = 0.f;
-      if (q + lane < q1) {
-        const int s = rev_slot[q + lane];
-        int plane = 0;
-        wq = w[s];
-        if (etype != nullptr) {
-          plane = etype[s];
-          if (plane < 0 || plane >= ntypes) {
-            plane = 0;
-            wq = 0.f;
-          }
-        }
-        row = plane * n + s / d;
-        if (scal != nullptr) sq = scal[s];
-      }
-      if (scal != nullptr && col0 == 0) s_acc += warp_sum(sq);
-      gather_slots<float, VEC, NP>(g, hdim, first, __ballot_sync(kFull, wq != 0.f), row, wq, 0,
-                                   add);
-    }
-    store_cols<float, VEC, NP>(out + (size_t)j * hdim, first, hdim, acc);
+__host__ __device__ constexpr int flight_rows(int rows_per_slot, int most = 32) {
+  const int r = kFlightRegs / (VEC * NP * rows_per_slot);
+  return r < most ? r : most;
+}
+
+// Calls f(std::integral_constant<int, G>) for the least power of two G from
+// kMinGroup up that holds cnt (warp-uniform, 1 <= cnt <= MAXG): a group of
+// rows in flight sized to the rows at hand, since each place in a group
+// costs a shuffle (the broadcast of its row; an SM's warps share one shuffle
+// unit) and a predicated load whether a row is there or not.
+constexpr int kMinGroup = 4;
+
+template <int MAXG, int G = kMinGroup, typename F>
+__device__ __forceinline__ void with_group(int cnt, F&& f) {
+  if constexpr (G < MAXG) {
+    if (cnt > G) return with_group<MAXG, 2 * G>(cnt, f);
   }
-  if (out_s != nullptr && lane == 0) out_s[j] = s_acc;
+  f(std::integral_constant<int, G>{});
+}
+
+// Rows row_u of g (row_u: lane base + u's `row`) at this lane's columns from
+// `first`, for u < R with base + u < cnt (warp-uniform), all in flight; and
+// the same rows of g2 where it is given, on the same broadcast of row_u.
+template <int VEC, int NP, int R>
+__device__ __forceinline__ void gather_rows(const float* __restrict__ g, int hdim, int first,
+                                            int row, int base, int cnt,
+                                            RawVec<float, VEC> (&r)[R][NP],
+                                            const float* __restrict__ g2 = nullptr,
+                                            RawVec<float, VEC> (*r2)[NP] = nullptr) {
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const size_t off = (size_t)__shfl_sync(kFull, row, (base + u) & 31) * hdim;
+    if (base + u < cnt) {
+      load_cols<float, VEC, NP>(g + off, first, hdim, r[u]);
+      if (g2 != nullptr) load_cols<float, VEC, NP>(g2 + off, first, hdim, r2[u]);
+    }
+  }
+}
+
+// This lane's part of a dot product over its columns of one block, added to
+// `part`: the same bits whichever of the two rows is a or b.
+template <int VEC, int NP>
+__device__ __forceinline__ float dot_cols(const float (&a)[NP][VEC], const float (&b)[NP][VEC],
+                                          float part) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) part = fmaf(a[p][i], b[p][i], part);
+  return part;
+}
+
+// One level of transpose_sum: lanes l and l ^ O add their parts.  While O is
+// at least the number of sums, every lane keeps all of them (warp_sum's
+// step); below, each lane keeps the half whose bit O matches its own and
+// sends the other half.
+template <int O, int NV>
+__device__ __forceinline__ void transpose_level(float (&v)[NV], int lane) {
+  if constexpr (O >= NV) {
+#pragma unroll
+    for (int s = 0; s < NV; ++s) v[s] += __shfl_xor_sync(kFull, v[s], O);
+  } else {
+    const bool up = lane & O;
+#pragma unroll
+    for (int s = 0; s < O; ++s) {
+      const float send = up ? v[s] : v[s + O];
+      const float keep = up ? v[s + O] : v[s];
+      v[s] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+  }
+}
+
+// v[u] holds this lane's part of sum u (u < NV, a power of two <= 32); lane
+// l gets the warp's sum of parts l % NV, all NV sums in 31 shuffles or
+// fewer.  Each level adds the pairs of lanes that warp_sum's butterfly
+// adds, so a sum has the bits warp_sum gives it, however many other sums
+// come with it.
+template <int NV>
+__device__ __forceinline__ float transpose_sum(float (&v)[NV]) {
+  static_assert(NV >= 1 && NV <= 32 && (NV & (NV - 1)) == 0, "NV: a power of two <= 32");
+  const int lane = threadIdx.x & 31;
+  transpose_level<16>(v, lane);
+  transpose_level<8>(v, lane);
+  transpose_level<4>(v, lane);
+  transpose_level<2>(v, lane);
+  transpose_level<1>(v, lane);
+  return v[0];
 }
 
 // Host side: the vector width and the groups per lane for a row of hdim

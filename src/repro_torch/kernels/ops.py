@@ -5,14 +5,20 @@ kernel (and raises if it cannot), a CPU tensor takes the plain PyTorch
 version in ``kernels.ref``, anything else raises.  There is no fallback from
 one to the other.
 
-Gradients: on the CPU the plain versions are ordinary autograd.  On the
-card the three graph aggregations go through ``torch.autograd.Function``s
-whose backward is a kernel too (``csr_spmm.CsrSpmm``,
+Gradients: the three graph aggregations go through
+``torch.autograd.Function``s (``csr_spmm.CsrSpmm``,
 ``csr_spmm.CsrSpmmEtypeMean``, ``edge_softmax.EdgeSoftmaxAgg``) when a
-gradient is wanted; they read the graph's reverse-slot index ``rev``
-(``PaddedGraph.rev``).  The other four kernels have no backward: on the
-card they raise (:func:`refuse_grad`) rather than return a tensor that
-autograd cannot differentiate.
+gradient is wanted.  Their backward sums into source rows over the graph's
+reverse-slot index ``rev`` (``PaddedGraph.rev``) in a fixed order: a kernel
+on the card, the closed forms of ``kernels.ref`` on the CPU, so two
+backward passes give the same bits at any thread count.  On the CPU a
+missing ``rev`` is built from the slots; on the card it must be given.  A
+CPU call that also wants a gradient for the graph's weights or mask takes
+ordinary autograd of the plain version, whose gather adds with atomics
+above one intra-op thread (not bit-reproducible); the card refuses one.
+The other four kernels have no backward: on the card they raise
+(:func:`refuse_grad`) rather than return a tensor that autograd cannot
+differentiate.
 """
 from __future__ import annotations
 
@@ -59,9 +65,10 @@ def refuse_grad(kernel: str, *tensors) -> None:
 def csr_spmm(h, nbr_idx, weights, rev=None):
     """out[i] = sum_d weights[i, d] * h[nbr_idx[i, d]].  ``rev``: the graph's
     reverse-slot index, which a gradient on the card needs."""
-    if _on_cuda(h):
-        if _wants_grad(h, weights):
-            return csr_spmm_autograd(h, nbr_idx, weights, rev)
+    cuda = _on_cuda(h)
+    if _wants_grad(h, weights) and (cuda or not weights.requires_grad):
+        return csr_spmm_autograd(h, nbr_idx, weights, rev, cuda)
+    if cuda:
         return csr_spmm_cuda(h, nbr_idx, weights)
     return ref.csr_spmm_ref(h, nbr_idx, weights)
 
@@ -71,10 +78,11 @@ def csr_spmm_etype_mean(h, nbr_idx, nbr_mask, nbr_etype, num_types: int, rev=Non
     by ``nbr_mask``, divided by the mask's sum for that type, at least 1):
     [num_types, N, H], one launch on the card.  ``rev`` as for
     :func:`csr_spmm`."""
-    if _on_cuda(h):
-        if _wants_grad(h, nbr_mask):
-            return csr_spmm_etype_mean_autograd(h, nbr_idx, nbr_mask, nbr_etype, num_types,
-                                                rev)
+    cuda = _on_cuda(h)
+    if _wants_grad(h, nbr_mask) and (cuda or not nbr_mask.requires_grad):
+        return csr_spmm_etype_mean_autograd(h, nbr_idx, nbr_mask, nbr_etype, num_types, rev,
+                                            cuda)
+    if cuda:
         return csr_spmm_etype_mean_cuda(h, nbr_idx, nbr_mask, nbr_etype, num_types)
     return ref.csr_spmm_etype_mean_ref(h, nbr_idx, nbr_mask, nbr_etype, num_types)
 
@@ -82,10 +90,12 @@ def csr_spmm_etype_mean(h, nbr_idx, nbr_mask, nbr_etype, num_types: int, rev=Non
 def edge_softmax_agg(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias, rev=None):
     """GAT masked neighbour softmax + weighted aggregation.  ``rev`` as for
     :func:`csr_spmm`."""
-    if _on_cuda(z):
-        if _wants_grad(z, s_src, s_dst, nbr_mask, etype_bias):
-            return edge_softmax_agg_autograd(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias,
-                                             rev)
+    cuda = _on_cuda(z)
+    if (_wants_grad(z, s_src, s_dst, nbr_mask, etype_bias)
+            and (cuda or not nbr_mask.requires_grad)):
+        return edge_softmax_agg_autograd(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias, rev,
+                                         cuda)
+    if cuda:
         return edge_softmax_agg_cuda(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias)
     return ref.edge_softmax_agg_ref(z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias)
 

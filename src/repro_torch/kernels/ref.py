@@ -123,15 +123,32 @@ def csr_spmm_etype_mean_bwd_ref(dout, nbr_mask, nbr_etype, rev_ptr, rev_slot):
     dh[j] = sum over j's slots (i, d) of mask[i, d] / cnt[i, e] *
     dout[e, i], e = etype[i, d] (slots of a type outside [0, E) add
     nothing).  dout: [E, N, H] f32."""
+    w = etype_mean_weights_ref(nbr_mask, nbr_etype, dout.shape[0])
+    return csr_spmm_etype_mean_bwd_saved_ref(dout, w, nbr_etype, rev_ptr, rev_slot)
+
+
+def csr_spmm_etype_mean_bwd_saved_ref(dout, wslot, nbr_etype, rev_ptr, rev_slot):
+    """:func:`csr_spmm_etype_mean_bwd_ref` from the slot weights the forward
+    kernel saves under grad (``wslot``, :func:`etype_mean_weights_ref`), as
+    the backward kernel reads them."""
     num_types = dout.shape[0]
-    n, d = nbr_mask.shape
-    w = etype_mean_weights_ref(nbr_mask, nbr_etype, num_types)
+    n, d = wslot.shape
     slot = rev_slot.long()
     plane = nbr_etype.long().flatten()[slot]
     keep = (plane >= 0) & (plane < num_types)
     rows = dout[plane.clamp(0, num_types - 1), slot // d]
-    vals = torch.where(keep, w.flatten()[slot], torch.zeros_like(rows[:, 0]))
+    vals = torch.where(keep, wslot.flatten()[slot], torch.zeros_like(rows[:, 0]))
     return _rev_sum(vals[:, None] * rows, rev_ptr, n)
+
+
+def edge_softmax_stats_ref(s_src, s_dst, nbr_idx, nbr_mask, etype_bias):
+    """Each row's softmax max and sum over its D masked logits, [N, 2] f32:
+    what the forward kernel saves under grad for the backward."""
+    idx = nbr_idx.long()
+    pre = s_src[idx] + s_dst[:, None] + etype_bias
+    logits = torch.where(nbr_mask > 0, _leaky_relu(pre), torch.full_like(pre, -1e9)).float()
+    m = logits.max(-1).values if logits.shape[1] else torch.full_like(s_dst, -float("inf"))
+    return torch.stack([m, torch.exp(logits - m[:, None]).sum(-1)], -1)
 
 
 def edge_softmax_agg_bwd_ref(dout, z, s_src, s_dst, nbr_idx, nbr_mask, etype_bias,
@@ -154,6 +171,30 @@ def edge_softmax_agg_bwd_ref(dout, z, s_src, s_dst, nbr_idx, nbr_mask, etype_bia
     p = torch.softmax(logits, dim=-1)
     dp = nbr_mask * torch.einsum("ndh,nh->nd", z[idx], dout)
     c = (p * dp).sum(-1, keepdim=True)
+    slope = torch.where(pre >= 0, torch.ones_like(pre), torch.full_like(pre, 0.2))
+    dlogit = torch.where(valid, p * (dp - c) * slope, torch.zeros_like(pre))
+    slot = rev_slot.long()
+    alpha = (p * nbr_mask).flatten()[slot]
+    dz = _rev_sum(alpha[:, None] * dout[slot // d], rev_ptr, n)
+    ds_src = _rev_sum(dlogit.flatten()[slot], rev_ptr, n)
+    return dz, ds_src, dlogit.sum(-1), dlogit
+
+
+def edge_softmax_agg_bwd_saved_ref(dout, out, stats, z, s_src, s_dst, nbr_idx, nbr_mask,
+                                   etype_bias, rev_ptr, rev_slot):
+    """:func:`edge_softmax_agg_bwd_ref` as the backward kernel computes it,
+    from what its forward saves: p = exp(logit - max) / sum from the row's
+    ``stats`` [N, 2] (:func:`edge_softmax_stats_ref`), and c_i =
+    dout[i] . out[i] in place of sum_d p * dp (the same number, since out[i]
+    = sum_d p * mask * z[idx[i, d]])."""
+    n, d = nbr_mask.shape
+    idx = nbr_idx.long()
+    valid = nbr_mask > 0
+    pre = s_src[idx] + s_dst[:, None] + etype_bias
+    logits = torch.where(valid, _leaky_relu(pre), torch.full_like(pre, -1e9))
+    p = torch.exp(logits - stats[:, :1]) / stats[:, 1:]
+    dp = nbr_mask * torch.einsum("ndh,nh->nd", z[idx], dout)
+    c = (dout * out).sum(-1, keepdim=True)
     slope = torch.where(pre >= 0, torch.ones_like(pre), torch.full_like(pre, 0.2))
     dlogit = torch.where(valid, p * (dp - c) * slope, torch.zeros_like(pre))
     slot = rev_slot.long()

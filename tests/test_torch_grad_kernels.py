@@ -11,8 +11,10 @@ on the CPU.
 - The reverse-slot index against a direct definition, and the graph that
   carries it (``PaddedGraph.with_rev``; ``PaddedGraph.to`` builds none).
 - The ``torch.autograd.Function``s with their CUDA wrappers replaced by the
-  plain versions: the gradients autograd returns through them, and the
-  errors for inputs the backward kernels cannot differentiate.
+  plain versions (the forwards saving what the backward kernels read):
+  the gradients autograd returns through them, one backward call a
+  gradient, and the errors for inputs the backward kernels cannot
+  differentiate.
 """
 import jax
 import jax.numpy as jnp
@@ -164,26 +166,35 @@ def test_edge_softmax_gradient_at_a_zero_logit_follows_the_reference():
 @pytest.fixture
 def plain_wrappers(monkeypatch):
     """The CUDA wrappers replaced by their plain versions, each counting
-    under its own name, as in a rehearsal of the card's path on the CPU."""
+    under its own name, as in a rehearsal of the card's path on the CPU:
+    the forwards with what they save under grad, the backwards reading it,
+    one count a call."""
     def counted(name, fn):
-        def run(*a):
+        def run(*a, **kw):
             _build.LAUNCHES[name] += 1
-            return fn(*a)
+            return fn(*a, **kw)
         return run
 
+    def etype_mean(h, idx, mask, et, num_types, save_weights=False):
+        out = ref.csr_spmm_etype_mean_ref(h, idx, mask, et, num_types)
+        return (out, ref.etype_mean_weights_ref(mask, et, num_types)) if save_weights else out
+
+    def softmax(z, ss, sd, idx, mask, bias, save_stats=False):
+        out = ref.edge_softmax_agg_ref(z, ss, sd, idx, mask, bias)
+        return (out, ref.edge_softmax_stats_ref(ss, sd, idx, mask, bias)) if save_stats else out
+
     fwd = {"csr_spmm_cuda": counted("csr_spmm", ref.csr_spmm_ref),
-           "csr_spmm_etype_mean_cuda": counted("csr_spmm", ref.csr_spmm_etype_mean_ref),
-           "edge_softmax_agg_cuda": counted("edge_softmax", ref.edge_softmax_agg_ref)}
+           "csr_spmm_etype_mean_cuda": counted("csr_spmm", etype_mean),
+           "edge_softmax_agg_cuda": counted("edge_softmax", softmax)}
     for name, fake in fwd.items():     # in the wrappers' modules and in ops
         monkeypatch.setattr(es_mod if name.startswith("edge") else spmm_mod, name, fake)
         monkeypatch.setattr(ops, name, fake)
     monkeypatch.setattr(spmm_mod, "csr_spmm_bwd_cuda",
                         counted("csr_spmm_bwd", ref.csr_spmm_bwd_ref))
     monkeypatch.setattr(spmm_mod, "csr_spmm_etype_mean_bwd_cuda",
-                        counted("csr_spmm_bwd", lambda dout, idx, mask, et, p, s:
-                                ref.csr_spmm_etype_mean_bwd_ref(dout, mask, et, p, s)))
+                        counted("csr_spmm_bwd", ref.csr_spmm_etype_mean_bwd_saved_ref))
     monkeypatch.setattr(es_mod, "edge_softmax_agg_bwd_cuda",
-                        counted("edge_softmax_bwd", ref.edge_softmax_agg_bwd_ref))
+                        counted("edge_softmax_bwd", ref.edge_softmax_agg_bwd_saved_ref))
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
     _build.reset_launches()
     yield

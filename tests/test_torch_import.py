@@ -297,10 +297,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         csr_spmm_bwd_cuda(h, w, ptr, slot)
     with pytest.raises(ValueError, match="CUDA"):
-        csr_spmm_etype_mean_bwd_cuda(torch.zeros(4, 4, 3), idx, w, idx, ptr, slot)
+        csr_spmm_etype_mean_bwd_cuda(torch.zeros(4, 4, 3), w, idx, ptr, slot)
     with pytest.raises(ValueError, match="CUDA"):
-        edge_softmax_agg_bwd_cuda(h, h, h[:, 0].contiguous(), h[:, 0].contiguous(), idx, w, w,
-                                  ptr, slot)
+        edge_softmax_agg_bwd_cuda(h, h, torch.zeros(4, 2), h, h[:, 0].contiguous(),
+                                  h[:, 0].contiguous(), idx, w, w, ptr, slot)
     assert _build.LAUNCHES == before
 
 

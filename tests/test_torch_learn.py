@@ -13,8 +13,9 @@ held against the reference's ``repro.learn`` on the same inputs:
   within 1e-5 relative on the losses and 1e-4 of each leaf's scale on the
   tuned leaves; ``_fit_hybrid``'s embeddings within 1e-5, and equal trees
   when fitted on the reference's embeddings; ``in_process=True`` equal to
-  the inline fine-tune bit for bit, its child loading neither JAX nor the
-  reference; the served parameters untouched by a fine-tune.
+  the inline fine-tune bit for bit (at one intra-op thread and at four),
+  its child loading neither JAX nor the reference; the served parameters
+  untouched by a fine-tune.
 
 Promotion and the closed loop are in ``tests/test_torch_learn_promotion.py``,
 the gateway's learn endpoints in ``tests/test_torch_gateway.py``.
@@ -611,6 +612,37 @@ def test_in_process_equals_inline_and_loads_only_the_port(window_world, capfd, m
             for line in capfd.readouterr().err.splitlines() if line.startswith("import time:")}
     assert {"torch", "repro_torch.learn.trainer"} <= mods
     assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not multiprocessing.active_children()
+
+
+@pytest.mark.parametrize("gnn", ["gcn", "gat"])
+def test_in_process_equals_inline_at_four_threads(window_world, gnn):
+    """At four intra-op threads the spawned child (which takes the parent's
+    thread count) equals the inline fine-tune bit for bit as well: the
+    graph aggregations' CPU gradient sums in a fixed order at any thread
+    count (GCN's per-type mean, GAT's edge softmax)."""
+    rows, ref_cfg, ref_params = _ref_world(window_world, gnn, typed=True)
+    cfg = _port_cfg(ref_cfg)
+    params = _to_port(ref_params)
+    examples = [TrainingExample(order_id=i, snapshot=r[0], arrival=r[1], entities=r[2],
+                                features=r[3], label=r[4], seq=i + 1)
+                for i, r in enumerate(rows)]
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        results = []
+        for in_process in (False, True):
+            tr = RollingWindowTrainer(cfg, WindowPolicy(min_window=8, max_window=128), steps=3,
+                                      lr=1e-2, k_max=4, max_deg=8, in_process=in_process,
+                                      device="cpu")
+            tr.extend(examples)
+            results.append(tr.train(params))
+    finally:
+        torch.set_num_threads(n)
+    inline, child = results
+    assert child.losses == inline.losses
+    for a, b in zip(tree_leaves(child.params), tree_leaves(inline.params)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
     assert not multiprocessing.active_children()
 
 
