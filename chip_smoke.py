@@ -57,16 +57,30 @@
    WAL/checkpoint restore bit for bit).
 6. Holds the zoo's kernels (``ssd_scan``, ``flash_attention``,
    ``gqa_decode``) against their plain versions at the zamba2-1.2b serving
-   shapes and at ragged ones, f32 and bf16, timed beside their bounds and
-   ``scaled_dot_product_attention`` as a yardstick.
+   shapes, at the decoder group's (B=4, S=512, heads 32/8 at Dh 64, 16/16,
+   40/40, 56/8, 32/8 and 48/8 at Dh 128; decode over a 544-slot cache with
+   per-sequence ``kv_len``; mixtral's 4,096 window over a 4,608-token
+   prompt) and at ragged ones, f32 and bf16, timed beside their bounds and
+   ``scaled_dot_product_attention`` as a yardstick (with a boolean mask
+   where a window or per-sequence ``kv_len`` needs one).
 7. Serves zamba2-1.2b at full width and depth in bf16 through
    ``repro_torch.launch.serve.serve`` (random weights from a seed): prefill
    4 prompts of 512 tokens, decode 32 tokens, with the launch counters
-   zeroed just before and read just after; then where the time of prefill
-   and of a decode step goes (``torch.profiler``).
+   zeroed just before and read just after (exact counts); then where the
+   time of prefill and of a decode step goes (``torch.profiler``).  Then
+   the decoder group the same way: granite-3-2b at full width and depth
+   (40 layers), olmo-1b (16, full), qwen1.5-32b and yi-34b (8 layers),
+   phi3.5-moe (4) and mixtral-8x22b (2) at full width, and mixtral at B=1
+   over a 4,608-token prompt with 16 decode steps, as published and with
+   the ring KV cache.
 8. In f32 at full width, the kernel path's logits (forward, prefill and 4
    decode steps) against the port's plain path on the host, and prefill ->
-   decode consistency on the card and on the host.
+   decode consistency on the card and on the host: zamba2-1.2b and
+   granite-3-2b at full depth, phi3.5-moe at 2 layers (its forward also at
+   the published capacity factor, which drops assignments; every routing
+   choice of the card equal to the host's); and mixtral's window: prefill
+   of 4,608 tokens -> 16 decode steps against the forward on the card, as
+   published and with the ring cache wrapping.
 9. Training (``repro_torch.train``): the two backward kernels
    (``csr_spmm_bwd``, ``edge_softmax_bwd``, one launch a call) against
    their plain versions at the first community's stage-1 shapes and, for
@@ -112,7 +126,8 @@
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
-(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 6 only,
+(``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 6 only, ``--zoo``
+steps 1, 6, 7 and 8,
 ``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
 and 9, ``--stream`` steps 1 and 4, ``--service`` steps 1 and 5, and
 ``--procs`` steps 1 and 11, and ``--learn`` steps 1 and 12: a
@@ -148,6 +163,16 @@ SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # of the output's scale
 # by one bf16 step, at most 2^-7 of the scale
 SSD_MMA_TOL = 1e-2
 ZOO_TOL = 5e-4               # whole-model logits, of their scale
+# the decoder group: granite-3-2b at full width and depth, the other five
+# configurations at full width, cut in depth to ~11 GB of bf16 weights each
+DEC_ARCH = "granite-3-2b"
+DEC_CUTS = (("olmo-1b", 16), ("qwen1.5-32b", 8), ("yi-34b", 8),
+            ("phi3.5-moe-42b-a6.6b", 4), ("mixtral-8x22b", 2))
+# (Hq, Hkv, Dh) of granite, olmo, qwen, yi, phi3.5-moe and mixtral
+DEC_HEADS = ((32, 8, 64), (16, 16, 128), (40, 40, 128), (56, 8, 128), (32, 8, 128),
+             (48, 8, 128))
+DEC_LONG_SEQ, DEC_LONG_TOKENS = 4608, 16    # mixtral at B=1: the 4,096 window bites
+DEC_MOE_LAYERS = 2           # phi3.5-moe's depth in the f32 agreement
 COLD_SETS = 6                # inputs rotated to time gqa_decode and ssd_scan cold in L2
 # backward kernels against their plain versions (f32, sums over the reverse
 # index in another order than the plain version's index_add_)
@@ -1220,8 +1245,12 @@ def zoo_kernel_checks(dev) -> dict:
             if window is None and sq == sk:
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, k, v, is_causal=causal, enable_gqa=hq != hkv)
-                case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
-                case["library_ms"] = time_ms(sdpa)
+            else:   # the band as a boolean mask
+                band = keep.to(dev)
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=band, enable_gqa=hq != hkv)
+            case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
+            case["library_ms"] = time_ms(sdpa)
         report("flash_attention", case)
 
     # gqa_decode: q [B,Hq,Dh], the cache k/v [B,Hkv,S,Dh], kv_len [B]
@@ -1246,27 +1275,33 @@ def zoo_kernel_checks(dev) -> dict:
             case["bound_ms"], case["bound_by"] = bound(moved, 4 * dh * hq * rows, dtype)
             case["ms"] = time_ms(lambda: gqa_decode_cuda(q, k, v, kv_len, window))
             case["plain_ms"] = time_ms(plain)
+            mask = None
             if window is None and min(lens) == s:
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q[:, :, None], k, v, enable_gqa=hq != hkv)[:, :, 0]
-                case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
-                case["library_ms"] = time_ms(sdpa)
+            else:   # per-sequence kv_len (and window) as a boolean mask [B, 1, 1, S]
+                pos = torch.arange(s, device=dev)[None, :]
+                mask = pos < kv_len[:, None].long()
+                if window is not None:
+                    mask &= pos >= kv_len[:, None].long() - window
+                mask = mask[:, None, None, :]
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=hq != hkv)[:, :, 0]
+            case["library_max_abs_err"] = float((sdpa().float() - want.float()).abs().max())
+            case["library_ms"] = time_ms(sdpa)
             # cold in L2, as in the decode step: the graph rotates over
             # COLD_SETS caches of this shape, more bytes than the L2 holds
             sets = [(randn(*k.shape, dtype=dtype), randn(*v.shape, dtype=dtype))
                     for _ in range(COLD_SETS)]
             case["cold_ms"] = time_ms(*(
                 lambda k=kc, v=vc: gqa_decode_cuda(q, k, v, kv_len, window) for kc, vc in sets))
-            case["cold_library_ms"] = None
-            if case["library_ms"] is not None:
-                case["cold_library_ms"] = time_ms(*(
-                    lambda k=kc, v=vc: F.scaled_dot_product_attention(
-                        q[:, :, None], k, v, enable_gqa=hq != hkv) for kc, vc in sets))
+            case["cold_library_ms"] = time_ms(*(
+                lambda k=kc, v=vc: F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=hq != hkv)
+                for kc, vc in sets))
             print(f"gqa_decode      {case['shape']:<44} cold in L2 ({COLD_SETS} caches, "
                   f"{COLD_SETS * tensor_bytes(k, v) / 1e6:.1f} MB): kernel "
-                  f"{case['cold_ms'] * 1e3:8.2f} us"
-                  + (f"  sdpa {case['cold_library_ms'] * 1e3:8.2f} us"
-                     if case["cold_library_ms"] is not None else ""))
+                  f"{case['cold_ms'] * 1e3:8.2f} us  sdpa {case['cold_library_ms'] * 1e3:8.2f} us")
             del sets
         report("gqa_decode", case)
 
@@ -1304,6 +1339,16 @@ def zoo_kernel_checks(dev) -> dict:
         gqa_case(4, 4, 4, 96, 64, 16, [0, 5, 120, 100], dtype, timed=False)
         gqa_case(2, 32, 2, 300, 128, None, [300, 129], dtype, timed=False)
         gqa_case(2, 4, 4, 1, 64, None, [1, 0], dtype, timed=False)
+        # the decoder group's serving shapes (GQA rep 1, 2, 4, 6 and 7; Dh 64
+        # and 128); per-sequence kv_len in decode; mixtral's 4,096 window
+        # over a 4,608-token prompt
+        dec_lens = [s_max, s_max - 1, 400, 273]
+        for hq, hkv, dh in DEC_HEADS:
+            flash_case(ZOO_BATCH, hq, hkv, ZOO_SEQ, ZOO_SEQ, dh, True, None, dtype, timed=True)
+            gqa_case(ZOO_BATCH, hq, hkv, s_max, dh, None, dec_lens, dtype, timed=True)
+        flash_case(1, 48, 8, DEC_LONG_SEQ, DEC_LONG_SEQ, 128, True, 4096, dtype, timed=True)
+        long_max = DEC_LONG_SEQ + DEC_LONG_TOKENS
+        gqa_case(1, 48, 8, long_max, 128, 4096, [long_max], dtype, timed=True)
     # f32 takes any N and P: N and P not multiples of 4 take its scalar loads
     ssd_case(1, 70, 2, 6, 10, torch.float32, timed=False)
     torch.cuda.synchronize()
@@ -1313,49 +1358,74 @@ def zoo_kernel_checks(dev) -> dict:
     return results
 
 
-def zoo_slice(dev) -> dict:
-    """zamba2-1.2b at full width and depth in bf16 through the serving entry
-    point; launch counts of the counted run; where the time goes."""
-    from repro_torch.configs import get_config
+def _attn_layers(cfg) -> int:
+    """Attention applications per forward (one flash_attention launch each,
+    one gqa_decode launch each per decode step)."""
+    if cfg.arch_type in ("dense", "moe"):
+        return cfg.num_layers
+    if cfg.arch_type == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return 0
+
+
+def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
+              warm: bool = False, profile: bool = True) -> dict:
+    """``cfg`` with random weights served through ``serve()`` on the card:
+    prefill ``batch`` prompts of ``seq`` tokens, decode ``tokens``.  The
+    launch counters are zeroed just before the run and read just after, and
+    must be exactly one ``flash_attention`` per attention layer, one
+    ``gqa_decode`` per attention layer and step, one ``ssd_scan`` per
+    Mamba2 layer and nothing else; every logit finite.  With ``profile``,
+    where the time of prefill and of a decode step goes (the same weights
+    and prompts, ``torch.profiler``)."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, init_params, prefill
 
-    cfg = get_config(ZOO_ARCH)
-    n_super = cfg.num_layers // cfg.attn_every
-    serve(cfg, ZOO_BATCH, ZOO_SEQ, 2, seed=0, device=dev)     # warm-up
+    name = f"zoo {cfg.name}{label}"
+    if warm:
+        serve(cfg, batch, seq, 2, seed=0, device=dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     _build.reset_launches()
-    out = serve(cfg, ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS, seed=0, device=dev)
+    out = serve(cfg, batch, seq, tokens, seed=0, device=dev)
     counts = dict(_build.LAUNCHES)
 
-    expected = {"ssd_scan": cfg.num_layers, "flash_attention": n_super,
-                "gqa_decode": n_super * ZOO_TOKENS}
-    for name, want in expected.items():
-        if counts[name] != want:
-            raise AssertionError(f"zoo: {name} launched {counts[name]} times, expected {want}")
+    n_attn = _attn_layers(cfg)
+    expected = dict.fromkeys(counts, 0)
+    expected.update(ssd_scan=cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0,
+                    flash_attention=n_attn, gqa_decode=n_attn * tokens)
+    if counts != expected:
+        raise AssertionError(f"{name}: launches {counts}, expected {expected}")
     ids = out["token_ids"]
-    if tuple(ids.shape) != (ZOO_BATCH, ZOO_TOKENS + 1) or not out["all_finite"]:
-        raise AssertionError(f"zoo: token ids {tuple(ids.shape)}, finite {out['all_finite']}")
-    if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
-        raise AssertionError("zoo: token id outside the vocabulary")
-    row = dict(arch=cfg.name, dtype=cfg.dtype, batch=ZOO_BATCH, prompt_len=ZOO_SEQ,
-               tokens=ZOO_TOKENS, prefill_s=out["prefill_s"], decode_s=out["decode_s"],
-               ms_per_step=out["ms_per_step"], tokens_per_s=out["tokens_per_s"],
+    if tuple(ids.shape) != (batch, tokens + 1) or not out["all_finite"]:
+        raise AssertionError(f"{name}: token ids {tuple(ids.shape)}, finite {out['all_finite']}")
+    # ids index the embedding table: the greedy decode takes the argmax over
+    # the padded head, as the reference's does
+    if int(ids.min()) < 0 or int(ids.max()) >= cfg.physical_vocab:
+        raise AssertionError(f"{name}: token id outside the embedding table")
+    row = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers, batch=batch,
+               prompt_len=seq, tokens=tokens, prefill_s=out["prefill_s"],
+               decode_s=out["decode_s"], ms_per_step=out["ms_per_step"],
+               tokens_per_s=out["tokens_per_s"],
                peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=counts)
+    print(f"{name} {cfg.dtype} B={batch} S={seq}: prefill {out['prefill_s']:.4f} s, "
+          f"decode {out['ms_per_step']:.2f} ms/step ({out['tokens_per_s']:.1f} tok/s) over "
+          f"{tokens} steps, peak {row['peak_gib']:.2f} GiB, launches {counts}")
+    if not profile:
+        return row
 
-    # where the time goes: the same weights and prompts, profiled
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (ZOO_BATCH, ZOO_SEQ))).to(dev)
+        0, cfg.vocab_size, (batch, seq))).to(dev)
     state = {}
 
     def run_prefill():
-        state["logits"], state["cache"] = prefill(params, cfg, prompts, ZOO_SEQ + ZOO_TOKENS)
+        state["logits"], state["cache"] = prefill(params, cfg, prompts, seq + tokens)
 
-    steps = min(8, ZOO_TOKENS)   # within the cache's capacity
+    steps = min(8, tokens)   # within the cache's capacity
 
     def run_decode():
         tok = state["logits"].argmax(-1)
@@ -1369,69 +1439,237 @@ def zoo_slice(dev) -> dict:
                    prefill_kernels=n)
         wall, busy, top, n = profiled(run_decode)
         row.update(step_profiled_ms=wall * 1e3 / steps, decode_busy_share=busy,
-                   decode_top=[(name, ms / steps) for name, ms in top],
+                   decode_top=[(k, ms / steps) for k, ms in top],
                    step_kernels=n / steps)
-    print(f"zoo {cfg.name} {cfg.dtype} B={ZOO_BATCH} S={ZOO_SEQ}: prefill {out['prefill_s']:.4f} s, "
-          f"decode {out['ms_per_step']:.2f} ms/step ({out['tokens_per_s']:.1f} tok/s) over "
-          f"{ZOO_TOKENS} steps, peak {row['peak_gib']:.2f} GiB, launches {counts}")
-    print(f"zoo card busy: prefill {row['prefill_busy_share']:.1%} of "
+    del params, state
+    torch.cuda.empty_cache()
+    print(f"{name} card busy: prefill {row['prefill_busy_share']:.1%} of "
           f"{row['prefill_profiled_ms']:.2f} ms ({row['prefill_kernels']} kernels), decode "
           f"{row['decode_busy_share']:.1%} of {row['step_profiled_ms']:.2f} ms/step "
           f"({row['step_kernels']:.0f} kernels per step) (profiled)")
     for phase in ("prefill_top", "decode_top"):   # device ms per prefill, per step
-        print(f"zoo {phase}: " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in row[phase]))
+        print(f"{name} {phase}: " + "; ".join(f"{k} {ms:.3f} ms" for k, ms in row[phase]))
     return row
 
 
-def zoo_agreement(dev) -> dict:
+def zoo_slice(dev) -> dict:
+    """zamba2-1.2b at full width and depth in bf16 through the serving entry
+    point; launch counts of the counted run; where the time goes."""
+    from repro_torch.configs import get_config
+
+    return serve_row(dev, get_config(ZOO_ARCH), ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS, warm=True)
+
+
+class RouteLog:
+    """Within ``with``: every MoE layer call of ``models.transformer``
+    records its tokens' expert choices [T, k] (on the host) and how many of
+    its assignments dropped."""
+
+    def __enter__(self):
+        from repro_torch.models import moe, transformer
+
+        self.choices, self.dropped = [], 0
+        self._apply = apply = transformer.moe_apply
+
+        def recording(params, cfg, x, full_capacity=False):
+            _, _, idx = moe.moe_route(params, x, cfg.experts_per_token)
+            cap = moe.moe_capacity(cfg, x.shape[0], full_capacity)
+            slot = moe.moe_dispatch(idx, cfg.num_experts, cap)[1]
+            self.choices.append(idx.cpu())
+            self.dropped += int((slot == cfg.num_experts * cap).sum())
+            return apply(params, cfg, x, full_capacity=full_capacity)
+
+        transformer.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.moe_apply = self._apply
+
+
+def zoo_agreement(dev, cfg=None, seed: int = 1) -> dict:
     """f32 at full width: the kernel path's forward, prefill and 4 decode
     logits against the port's plain path on the host, and prefill -> decode
-    consistency on the card and on the host (the depth of 38 blocks with
+    consistency on the card and on the host (the depth of many blocks with
     random weights amplifies f32 rounding, so the host's own consistency is
     the floor the card is read against), each within ZOO_TOL of the logits'
-    scale."""
+    scale.  ``cfg`` defaults to zamba2-1.2b at full depth.
+
+    For a MoE config the published capacity factor drops assignments, and
+    decode runs at full capacity, so the forward is first held card against
+    host at the published factor (drops counted), and the rest runs at a
+    factor that drops nothing (checked).  Every routing choice of the card
+    must equal the host's (counted, and the run fails on one)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.params import tree_map
 
-    cfg = dataclasses.replace(get_config(ZOO_ARCH), dtype="float32")
+    if cfg is None:
+        cfg = get_config(ZOO_ARCH)
+    full_depth = get_config(cfg.name).num_layers
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    moe = cfg.arch_type == "moe"
+    # E slots per k·T/E: cap >= k·T, so nothing can drop
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts)) if moe else cfg
     b, s, n_dec = 2, 128, 4
-    params = init_params(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s + n_dec)))
 
     def run(p, device):
         tok = tokens.to(device)
+        outs, published = [], None
         with torch.no_grad():
-            full, _, _ = forward(p, cfg, tok)
-            last, cache = prefill(p, cfg, tok[:, :s], s + n_dec)
-            steps = []
-            for i in range(n_dec):
-                lg, cache = decode_step(p, cfg, tok[:, s + i], cache)
-                steps.append(lg)
-        return [t.float().cpu() for t in (full, last, torch.stack(steps, 1))]
+            if moe:
+                with RouteLog() as published:
+                    outs.append(forward(p, cfg, tok)[0])
+            with RouteLog() as log:
+                full, _, _ = forward(p, nodrop, tok)
+                last, cache = prefill(p, nodrop, tok[:, :s], s + n_dec)
+                steps = []
+                for i in range(n_dec):
+                    lg, cache = decode_step(p, nodrop, tok[:, s + i], cache)
+                    steps.append(lg)
+        outs = [t.float().cpu() for t in [full, last, torch.stack(steps, 1)] + outs]
+        return outs, published, log
 
     t0 = time.perf_counter()
-    card = run(params, dev)
+    card, card_pub, card_log = run(params, dev)
     t1 = time.perf_counter()
-    host = run(tree_map(lambda t: t.cpu(), params), "cpu")
+    host, host_pub, host_log = run(tree_map(lambda t: t.cpu(), params), "cpu")
     t2 = time.perf_counter()
-    gaps = {}
-    for what, got, want in (("forward", card[0], host[0]), ("prefill", card[1], host[1]),
-                            ("decode", card[2], host[2]),
-                            ("card prefill vs forward", card[1], card[0][:, s - 1]),
-                            ("card decode vs forward", card[2], card[0][:, s:]),
-                            # the same check on the host: the model's own rounding floor
-                            ("host prefill vs forward", host[1], host[0][:, s - 1]),
-                            ("host decode vs forward", host[2], host[0][:, s:])):
-        gaps[what] = compare_scaled(got, want, ZOO_TOL, f"zoo f32 {what}")[1]
-    print(f"zoo f32 {cfg.name} full width and depth, B={b} S={s} + {n_dec} decode steps: "
-          "max|d| over the logits' scale: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
-          + f" (limit {ZOO_TOL:g}); card {t1 - t0:.2f} s, host plain path {t2 - t1:.2f} s")
+    del params
+    torch.cuda.empty_cache()
+    pairs = [("forward", card[0], host[0]), ("prefill", card[1], host[1]),
+             ("decode", card[2], host[2]),
+             ("card prefill vs forward", card[1], card[0][:, s - 1]),
+             ("card decode vs forward", card[2], card[0][:, s:]),
+             # the same check on the host: the model's own rounding floor
+             ("host prefill vs forward", host[1], host[0][:, s - 1]),
+             ("host decode vs forward", host[2], host[0][:, s:])]
+    if moe:
+        pairs.insert(0, ("forward at the published capacity", card[3], host[3]))
+    gaps = {what: compare_scaled(got, want, ZOO_TOL, f"zoo f32 {cfg.name} {what}")[1]
+            for what, got, want in pairs}
+    depth = ("full width and depth" if cfg.num_layers == full_depth else
+             f"full width, depth {cfg.num_layers} of {full_depth}")
+    line = (f"zoo f32 {cfg.name} {depth}, B={b} S={s} + {n_dec} decode steps: "
+            "max|d| over the logits' scale: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + f" (limit {ZOO_TOL:g}); card {t1 - t0:.2f} s, host plain path {t2 - t1:.2f} s")
+    if moe:
+        differ = sum(int((c != h).sum()) for logs in ((card_pub, host_pub), (card_log, host_log))
+                     for c, h in zip(logs[0].choices, logs[1].choices))
+        calls = len(card_pub.choices) + len(card_log.choices)
+        if (len(card_pub.choices), len(card_log.choices)) != \
+                (len(host_pub.choices), len(host_log.choices)):
+            raise AssertionError(f"zoo f32 {cfg.name}: {calls} MoE calls on the card, "
+                                 f"{len(host_pub.choices) + len(host_log.choices)} on the host")
+        choices = sum(c.numel() for c in card_pub.choices + card_log.choices)
+        gaps.update(routing_choices=choices, routing_differ=differ,
+                    dropped_published=card_pub.dropped, dropped_nodrop=card_log.dropped)
+        line += (f"; routing: {differ} of {choices} choices differ card vs host over {calls} "
+                 f"MoE calls; {card_pub.dropped} assignments dropped at capacity factor "
+                 f"{cfg.moe_capacity_factor:g} (host {host_pub.dropped}), "
+                 f"{card_log.dropped} at {nodrop.moe_capacity_factor:g}")
+        if differ or card_log.dropped or host_log.dropped or \
+                card_pub.dropped != host_pub.dropped:
+            print(line)
+            raise AssertionError(f"zoo f32 {cfg.name}: {differ} routing choices differ, "
+                                 f"{card_log.dropped}/{host_log.dropped} drops at capacity "
+                                 f"factor {nodrop.moe_capacity_factor:g}")
+    print(line)
     return gaps
+
+
+def window_consistency(dev) -> dict:
+    """mixtral-8x22b at full width, 2 layers, f32, B=1: a prompt of
+    DEC_LONG_SEQ tokens (past the 4,096 window) -> DEC_LONG_TOKENS decode
+    steps, as published (a full cache, the window masking it) and with the
+    ring cache (4,096 slots, wrapping), each against the forward over the
+    whole sequence on the card, within ZOO_TOL of the logits' scale; at a
+    capacity factor that drops nothing (checked), since decode runs at full
+    capacity."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cfg = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                              moe_capacity_factor=float(cfg.num_experts))   # cap >= k·T
+    s, n_dec = DEC_LONG_SEQ, DEC_LONG_TOKENS
+    params = init_params(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, s + n_dec))).to(dev)
+    gaps = {}
+    with torch.no_grad(), RouteLog() as log:
+        full = forward(params, cfg, tokens)[0].float()
+        for ring in (False, True):
+            c = dataclasses.replace(cfg, ring_kv_cache=ring)
+            last, cache = prefill(params, c, tokens[:, :s], s + n_dec)
+            slots = cache["decoder"]["k"].shape[-2]
+            if slots != (cfg.window if ring else s + n_dec):
+                raise AssertionError(f"mixtral window: {slots} cache slots (ring {ring})")
+            steps = []
+            for i in range(n_dec):
+                lg, cache = decode_step(params, c, tokens[:, s + i], cache)
+                steps.append(lg.float())
+            tag = "ring" if ring else "published"
+            gaps[f"{tag} prefill vs forward"] = compare_scaled(
+                last.float(), full[:, s - 1], ZOO_TOL, f"mixtral window {tag} prefill")[1]
+            gaps[f"{tag} decode vs forward"] = compare_scaled(
+                torch.stack(steps, 1), full[:, s:], ZOO_TOL, f"mixtral window {tag} decode")[1]
+    del params, full, cache
+    torch.cuda.empty_cache()
+    if log.dropped:
+        raise AssertionError(f"mixtral window: {log.dropped} assignments dropped at capacity "
+                             f"factor {cfg.moe_capacity_factor:g}")
+    print(f"zoo f32 {cfg.name} full width, depth 2 of 56, B=1 S={s} + {n_dec} decode steps "
+          f"(window {cfg.window}; the ring's {cfg.window} slots take the prompt's last "
+          f"{cfg.window} positions at p % {cfg.window}): "
+          "max|d| over the logits' scale: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (limit {ZOO_TOL:g}), 0 assignments dropped at capacity factor "
+          f"{cfg.moe_capacity_factor:g}")
+    return gaps
+
+
+def decoder_phase(dev) -> dict:
+    """The zoo's decoder group on the card: granite-3-2b at full width and
+    depth in bf16 through ``serve()`` (exact launches, where the time goes);
+    the other five configurations at full width, cut in depth (DEC_CUTS);
+    mixtral at B=1 over a prompt past its window, as published and with the
+    ring cache; then the f32 agreements: granite-3-2b at full depth and
+    phi3.5-moe at DEC_MOE_LAYERS layers against the host's plain path, and
+    the window's prefill -> decode consistency."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    rows = [serve_row(dev, get_config(DEC_ARCH), ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS, warm=True)]
+    for arch, depth in DEC_CUTS:
+        cfg = get_config(arch)
+        cut = f" (depth {depth} of {cfg.num_layers})" if depth < cfg.num_layers else ""
+        rows.append(serve_row(dev, dataclasses.replace(cfg, num_layers=depth), ZOO_BATCH,
+                              ZOO_SEQ, ZOO_TOKENS, label=cut))
+        rows[-1]["full_layers"] = cfg.num_layers
+    mixtral = dataclasses.replace(get_config("mixtral-8x22b"), num_layers=2)
+    for ring in (False, True):
+        rows.append(serve_row(dev, dataclasses.replace(mixtral, ring_kv_cache=ring), 1,
+                              DEC_LONG_SEQ, DEC_LONG_TOKENS, profile=False,
+                              label=f" (depth 2 of 56, {'ring' if ring else 'no ring'})"))
+        rows[-1].update(full_layers=56, ring_kv_cache=ring)
+    agreement = {DEC_ARCH: zoo_agreement(dev, get_config(DEC_ARCH), seed=1)}
+    moe_cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), num_layers=DEC_MOE_LAYERS)
+    agreement[moe_cfg.name] = zoo_agreement(dev, moe_cfg, seed=2)
+    agreement["mixtral-8x22b window"] = window_consistency(dev)
+    launches = dict.fromkeys(rows[0]["launches"], 0)
+    for row in rows:
+        for name, c in row["launches"].items():
+            launches[name] += c
+    return dict(rows=rows, f32_agreement_of_scale=agreement, launches=launches)
 
 
 def _timed(obj, name: str, log: list) -> None:
@@ -3303,6 +3541,13 @@ def main() -> int:
     if "--zoo-kernels" in sys.argv[1:]:
         zoo_kernel_checks(dev)
         return 0
+    if "--zoo" in sys.argv[1:]:
+        zoo_kernel_checks(dev)
+        zoo = zoo_slice(dev)
+        zoo["f32_agreement_of_scale"] = zoo_agreement(dev)
+        print("zoo: " + json.dumps(zoo))
+        print("decoder: " + json.dumps(decoder_phase(dev)))
+        return 0
     if "--stream" in sys.argv[1:]:
         stream_phase(dev)
         return 0
@@ -3467,6 +3712,10 @@ def main() -> int:
         launches[name] += zoo["launches"][name]
     zoo["f32_agreement_of_scale"] = zoo_agreement(dev)
     print("zoo: " + json.dumps(zoo))
+    decoder = decoder_phase(dev)
+    for name, c in decoder["launches"].items():
+        launches[name] += c
+    print("decoder: " + json.dumps(decoder))
 
     # ------------------------------------------------------- 10. kernel line
     def pick(name, shape_prefix, shape_suffix=""):
@@ -3567,6 +3816,16 @@ def main() -> int:
         k: stream["kernel_cases"]["csr_spmm_etype_mean"][k] for k in case_keys}
     by_name["stage2_score"]["stream_case"]["same_bits_as_b16"] = \
         stream["kernel_cases"]["stage2_score"]["same_bits_as_b16"]
+    # the decoder group's runs: their launches, and each kernel at
+    # granite-3-2b's serving shape (bf16)
+    for entry in kernels:
+        entry["decoder_launches"] = decoder["launches"][entry["name"]]
+    by_name["flash_attention"]["decoder_case"] = {k: pick(
+        "flash_attention", f"B={ZOO_BATCH} Hq=32 Hkv=8 Sq={ZOO_SEQ} Sk={ZOO_SEQ} Dh=64 "
+        "causal w=None bfloat16")[k] for k in case_keys}
+    by_name["gqa_decode"]["decoder_case"] = {k: pick(
+        "gqa_decode", f"B={ZOO_BATCH} Hq=32 Hkv=8 S={ZOO_SEQ + ZOO_TOKENS} Dh=64 w=None",
+        "bfloat16")[k] for k in case_keys}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -83,12 +83,22 @@ def _project_qkv(params, cfg, x, kv_x=None):
     return q, k, v
 
 
-def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True):
+ATTN_IMPLS = ("blockwise", "banded")
+
+
+def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
+               attn_impl: str = "blockwise"):
     """Full-sequence self attention (prefill).  x: [B, S, d].
 
     Returns (out [B, S, d], (k, v)) with k/v [B, Hkv, S, Dh] for the cache.
-    The reference's ``attn_impl='banded'`` variant is not ported: it serves
-    only sliding-window configurations, none of which the port has yet."""
+    ``attn_impl`` is the reference's choice of XLA path, ``"blockwise"`` or
+    ``"banded"`` (its band-only sliding-window attention, for a windowed
+    configuration such as mixtral-8x22b).  Both take
+    ``kernels.ops.flash_attention`` with the config's window: the card's
+    kernel visits only the key tiles inside the band either way, and the
+    plain version masks the same band, so the two give one function."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, kv_x)
     if use_rope:

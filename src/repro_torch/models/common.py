@@ -50,6 +50,15 @@ def rmsnorm(x, scale=None, eps=1e-6):
     return y.to(x.dtype)
 
 
+def layernorm_nonparametric(x, eps=1e-5):
+    """OLMo's non-parametric LayerNorm: no learnable scale or bias, the
+    statistics in f32 (the population variance, as ``jnp.var``)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

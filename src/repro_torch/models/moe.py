@@ -1,0 +1,122 @@
+"""Mixture-of-Experts layer: top-k router with sort-based capacity dispatch.
+
+The reference's ``repro.models.moe`` with tensors.  Every expert GEMM stays
+dense over a fixed ``[E, C, d]`` expert buffer filled by a gather (plain
+batched matrix products, ``torch.bmm``: the reference computes them outside
+any Pallas kernel).  The port has no mesh, so routing runs as the
+reference's single group (its ``_num_groups`` is 1 without a mesh).
+
+Capacity: ``C = int(ceil(k·T / E) · capacity_factor) + 1``, or ``k·T``
+under ``full_capacity``; overflowed assignments drop (their gate mass is
+lost).  The router also returns the Switch/Mixtral load-balancing loss.
+
+Order is explicit where the reference's ops define it: the top-k breaks
+ties toward the lower expert index (``jax.lax.top_k``) by a stable
+descending sort, and the slot ranks come from a stable argsort
+(``jnp.argsort``), so two assignments to one expert keep token order.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import dense_init, torch_dtype
+from repro_torch.utils.padding import ceil_div
+
+
+def moe_init(gen: torch.Generator, cfg, device=None):
+    """The router in f32; the experts' weights scaled as the reference's
+    ``dense_init`` scales them, by their leading axis (E) ** -0.5."""
+    dtype = torch_dtype(cfg.dtype)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": dense_init(gen, (d, e), torch.float32, scale=0.02, device=device),
+        "w_gate": dense_init(gen, (e, d, f), dtype, device=device),
+        "w_up": dense_init(gen, (e, d, f), dtype, device=device),
+        "w_down": dense_init(gen, (e, f, d), dtype, device=device),
+    }
+
+
+def moe_capacity(cfg, tokens: int, full_capacity: bool = False) -> int:
+    """Slots per expert for ``tokens`` tokens."""
+    k = cfg.experts_per_token
+    if full_capacity:
+        return k * tokens
+    return int(ceil_div(k * tokens, cfg.num_experts) * cfg.moe_capacity_factor) + 1
+
+
+def moe_route(params, x, k: int):
+    """Router probabilities [T, E] (f32) and the top ``k``: gates [T, k]
+    renormalised over the chosen experts, and their indices [T, k], ties
+    toward the lower index."""
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = top[:, :k], idx[:, :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def moe_dispatch(expert_idx, num_experts: int, cap: int):
+    """Slot assignment of the flattened ``[T·k]`` assignments.
+
+    Returns ``inv`` [E·C] (the token that fills each expert slot, T for an
+    empty slot) and ``slot_of_assign`` [T·k] (each assignment's slot, E·C
+    where it dropped)."""
+    t = expert_idx.shape[0]
+    flat_e = expert_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(sorted_e, minlength=num_experts)
+    offsets = torch.cumsum(counts, 0) - counts          # segment starts
+    rank = torch.arange(flat_e.numel(), device=flat_e.device) - offsets[sorted_e]
+    keep = rank < cap
+    sentinel = num_experts * cap
+    slot = torch.where(keep, sorted_e * cap + rank, torch.full_like(rank, sentinel))
+    tok_of_sorted = order // expert_idx.shape[1]
+    # one row past the buffer takes every dropped write, then is cut off
+    inv = torch.full((sentinel + 1,), t, dtype=torch.long, device=flat_e.device)
+    inv[slot] = tok_of_sorted
+    slot_of_assign = torch.empty_like(slot)
+    slot_of_assign[order] = slot
+    return inv[:-1], slot_of_assign
+
+
+def moe_apply(params, cfg, x, full_capacity: bool = False):
+    """x: [T, d] flattened tokens.  Returns (y [T, d], aux_loss scalar f32).
+
+    The router in f32; the expert products and the combine in the
+    parameters' dtype, ``silu`` in f32 and cast back, as the reference."""
+    t, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = moe_capacity(cfg, t, full_capacity)
+    probs, gate_vals, expert_idx = moe_route(params, x, k)
+
+    # load-balance aux loss (Switch eq. 4)
+    hits = torch.bincount(expert_idx.reshape(-1), minlength=e).float() / (t * k)
+    aux = e * torch.sum(probs.mean(0) * hits)
+
+    inv, slot_of_assign = moe_dispatch(expert_idx, e, cap)
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    z = x_pad[inv].reshape(e, cap, d)
+
+    g = F.silu(torch.bmm(z, params["w_gate"]).float()).to(z.dtype)
+    u = torch.bmm(z, params["w_up"])
+    y_ec = torch.bmm(g * u, params["w_down"])                        # [E, C, d]
+
+    y_flat = torch.cat([y_ec.reshape(e * cap, d), y_ec.new_zeros((1, d))])
+    contrib = y_flat[slot_of_assign].reshape(t, k, d)
+    y = torch.einsum("tkd,tk->td", contrib, gate_vals.to(contrib.dtype))
+    return y.to(x.dtype), aux
+
+
+def moe_apply_dense_ref(params, cfg, x):
+    """O(T·E) oracle: every expert on every token, weighted by the top-k
+    gates.  With capacity for every assignment, ``moe_apply`` must match."""
+    t = x.shape[0]
+    _, gate_vals, expert_idx = moe_route(params, x, cfg.experts_per_token)
+    dense_gates = torch.zeros((t, cfg.num_experts), dtype=torch.float32, device=x.device)
+    dense_gates.scatter_(1, expert_idx, gate_vals)
+    g = F.silu(torch.einsum("td,edf->tef", x.float(), params["w_gate"].float())).to(x.dtype)
+    u = torch.einsum("td,edf->tef", x, params["w_up"])
+    y_e = torch.einsum("tef,efd->ted", g * u, params["w_down"])
+    return torch.einsum("ted,te->td", y_e.float(), dense_gates).to(x.dtype)

@@ -1,18 +1,22 @@
-"""The zoo's composable model, for the groups the port has: ``mamba`` and
-``zamba_super``.
+"""The zoo's composable model, for the groups the port has: ``decoder``
+(dense and MoE), ``mamba`` and ``zamba_super``.
 
 The reference's ``repro.models.transformer`` with tensors.  A config
 compiles to a *block program*, an ordered list of groups, each a stack of
 layers whose parameters are stacked on a leading axis (the reference's
 ``lax.scan`` over stacked params becomes a Python loop over that axis):
 
+  dense/moe   [('decoder', L)]
   ssm         [('mamba', L)]
   hybrid      [('zamba_super', L // k)] + [('mamba', L % k)]   (shared attn)
 
-A ``zamba_super`` runs ``attn_every`` Mamba2 blocks and then the ONE shared
-attention+MLP block, whose parameters (``shared_attn``) are shared by every
-application, with one KV cache per application.  The ``decoder`` (dense and
-moe), ``vlm_super`` and audio ``enc``/``dec`` groups raise
+A ``decoder`` layer is attention then an FFN, or the MoE layer
+(``models.moe``) for a ``moe`` config, whose load-balancing loss the
+forward sums over layers as ``aux``; decode runs the MoE at full capacity,
+as the reference.  A ``zamba_super`` runs ``attn_every`` Mamba2 blocks and
+then the ONE shared attention+MLP block, whose parameters (``shared_attn``)
+are shared by every application, with one KV cache per application.  The
+``vlm_super`` and audio ``enc``/``dec`` groups raise
 ``NotImplementedError``; ``ROADMAP.md`` queue 1 holds them.  There is no
 ``use_pallas``: the tensors' device picks the kernel path.
 
@@ -25,19 +29,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
-from repro_torch.models.common import dense_init, ffn_apply, ffn_init, rmsnorm, torch_dtype
+from repro_torch.models.common import (dense_init, ffn_apply, ffn_init,
+                                      layernorm_nonparametric, rmsnorm, torch_dtype)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.params import tree_map
 from repro_torch.utils.device import resolve_device
 
-PORTED_GROUPS = ("mamba", "zamba_super")
+PORTED_GROUPS = ("decoder", "mamba", "zamba_super")
 
 
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md queue 1 lists the zoo's remaining "
-        "groups (decoder, moe, vlm_super, enc/dec) in order")
+        "groups (vlm_super, enc/dec) in order")
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +82,7 @@ def _ported_program(cfg: ArchConfig):
 
 def _norm(cfg, x, scale):
     if cfg.nonparametric_ln:
-        _not_ported("the non-parametric LayerNorm (olmo)")
+        return layernorm_nonparametric(x)
     return rmsnorm(x, scale)
 
 
@@ -99,15 +105,17 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 
 def _decoder_layer_init(gen, cfg, device=None):
-    if cfg.arch_type == "moe":
-        _not_ported("the moe layer (models/moe.py)")
     dtype = torch_dtype(cfg.dtype)
-    return {
+    p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "attn": attn_init(gen, cfg, device=device),
-        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_type, dtype, device=device),
     }
+    if cfg.arch_type == "moe":
+        p["moe"] = moe_init(gen, cfg, device=device)
+    else:
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_type, dtype, device=device)
+    return p
 
 
 def _stack_init(init_fn, gen, n, cfg, device):
@@ -120,8 +128,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
     Draws come from ``gen`` on its own device (a CUDA generator draws on the
     card, which is much faster at full width); one seed and one generator
     device give the same weights on every target device.  Key paths, shapes
-    and dtypes are the reference's (``groups/zamba_super/mamba/w_in`` has
-    leading axes ``[n_super, attn_every]``); the values are not.
+    and dtypes are the reference's (``groups/decoder/attn/wq`` has a leading
+    ``[L]`` axis, ``groups/decoder/moe/w_gate`` is ``[L, E, d, f]``,
+    ``groups/zamba_super/mamba/w_in`` has leading axes ``[n_super,
+    attn_every]``); the values are not.
     """
     dev = resolve_device(device)
     prog = _ported_program(cfg)
@@ -134,7 +144,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
         "groups": {},
     }
     for gname, n in prog:
-        if gname == "mamba":
+        if gname == "decoder":
+            params["groups"][gname] = _stack_init(_decoder_layer_init, gen, n, cfg, dev)
+        elif gname == "mamba":
             params["groups"][gname] = _stack_init(mamba_init, gen, n, cfg, dev)
         else:  # zamba_super
             params["groups"][gname] = {"mamba": _stack(
@@ -148,11 +160,22 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _decoder_block(p, cfg, h, *, want_cache):
-    a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]))
+def _ffn_or_moe(p, cfg, f_in, *, full_capacity=False):
+    """The layer's FFN, or its MoE over the flattened ``[B·S, d]`` tokens.
+    Returns (out, aux), aux the MoE's balance loss (None for an FFN)."""
+    if "moe" in p:
+        b, s, d = f_in.shape
+        y, aux = moe_apply(p["moe"], cfg, f_in.reshape(b * s, d), full_capacity=full_capacity)
+        return y.reshape(b, s, d), aux
+    return ffn_apply(p["ffn"], f_in, cfg.ffn_type), None
+
+
+def _decoder_block(p, cfg, h, *, want_cache, attn_impl="blockwise"):
+    """Returns (h, cache, aux)."""
+    a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), attn_impl=attn_impl)
     h = h + a_out
-    h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
-    return h, ({"k": k, "v": v} if want_cache else None)
+    f_out, aux = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]))
+    return h + f_out, ({"k": k, "v": v} if want_cache else None), aux
 
 
 def _mamba_stack(gp, cfg, h, want_cache):
@@ -164,52 +187,80 @@ def _mamba_stack(gp, cfg, h, want_cache):
     return h, (_stack(states) if want_cache else None)
 
 
-def _run_groups(params, cfg: ArchConfig, h, *, want_cache):
-    """Run the block program.  Returns (h, caches)."""
+def _run_groups(params, cfg: ArchConfig, h, *, want_cache, attn_impl="blockwise"):
+    """Run the block program.  Returns (h, caches, aux summed over the
+    decoder layers, f32)."""
     caches = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for gname, n in _ported_program(cfg):
         gp = params["groups"][gname]
-        if gname == "mamba":
+        if gname == "decoder":
+            outs = []
+            for i in range(n):
+                h, cache, aux = _decoder_block(_layer(gp, i), cfg, h, want_cache=want_cache,
+                                               attn_impl=attn_impl)
+                if aux is not None:
+                    aux_total = aux_total + aux
+                outs.append(cache)
+            caches[gname] = _stack(outs) if want_cache else None
+        elif gname == "mamba":
             h, caches[gname] = _mamba_stack(gp, cfg, h, want_cache)
         else:  # zamba_super
             shared = params["shared_attn"]
             outs = []
             for i in range(n):
                 h, mstates = _mamba_stack(_layer(gp["mamba"], i), cfg, h, want_cache)
-                h, acache = _decoder_block(shared, cfg, h, want_cache=want_cache)
+                h, acache, _ = _decoder_block(shared, cfg, h, want_cache=want_cache,
+                                              attn_impl=attn_impl)
                 outs.append({"mamba": mstates, "attn": acache})
             caches[gname] = _stack(outs) if want_cache else None
-    return h, (caches if want_cache else {})
+    return h, (caches if want_cache else {}), aux_total
 
 
-def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False):
+def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
+            attn_impl: str = "blockwise"):
     """tokens: [B, S] int.  Returns (logits [B, S, Vphys], caches, aux); aux
-    (the MoE balance loss in the reference) is 0 for the ported groups."""
+    is the MoE balance loss summed over the decoder layers (f32, 0 without
+    MoE).  ``attn_impl``: ``"blockwise"`` or ``"banded"`` (one function on
+    the port; see ``models.attention.attn_apply``)."""
     if extra:
         _not_ported("vision / audio inputs (extra)")
     h = params["embed"][tokens.long()]
-    h, caches = _run_groups(params, cfg, h, want_cache=want_cache)
+    h, caches, aux = _run_groups(params, cfg, h, want_cache=want_cache, attn_impl=attn_impl)
     logits = _norm(cfg, h, params["final_ln"]) @ params["head"]
-    return logits, caches, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, caches, aux
 
 
-def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None):
+def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,
+            attn_impl: str = "blockwise"):
     """Process a prompt and build a decode cache of capacity ``max_len``.
 
     Returns (last_logits [B, Vphys], caches): the Mamba states as the
     forward leaves them, the attention K/V copied into zeroed
-    ``[.., max_len, Dh]`` buffers at offset 0, and ``pos`` = S.
+    ``[.., max_len, Dh]`` buffers at offset 0, and ``pos`` = S.  A ring
+    cache (``cfg.ring_kv_cache``, ``window`` slots) shorter than the prompt
+    keeps the prompt's last ``window`` positions, position p at slot
+    p % window, where decode goes on writing (the reference's prefill
+    refuses a prompt longer than its ring).
     """
     b, s = tokens.shape
-    logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True)
+    logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True,
+                                    attn_impl=attn_impl)
     full = init_cache(cfg, b, max_len, device=logits.device)
+    ring = bool(cfg.ring_kv_cache and cfg.window)
 
     def merge(dst, src):
         if dst.shape == src.shape:
             return src.to(dst.dtype)
         if dst.dim() != src.dim() or dst.shape[-1] != src.shape[-1]:
             raise ValueError(f"cache shapes {tuple(dst.shape)} and {tuple(src.shape)}")
-        dst[..., :src.shape[-2], :] = src
+        n, cap = src.shape[-2], dst.shape[-2]
+        if n > cap:
+            if not ring:
+                raise ValueError(f"a prompt of {n} positions does not fit a cache of {cap}")
+            src = torch.roll(src[..., n - cap:, :], shifts=(n - cap) % cap, dims=-2)
+            n = cap
+        dst[..., :n, :] = src
         return dst
 
     merged = {"pos": s}
@@ -258,7 +309,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
     caches = {"pos": 0}
     for gname, n in _ported_program(cfg):
         n = max(n, 1)
-        if gname == "mamba":
+        if gname == "decoder":
+            attn = _attn_cache_zeros(cfg, batch, max_len, dtype, dev)
+            caches[gname] = tree_map(lambda t: t.expand(n, *t.shape).contiguous(), attn)
+        elif gname == "mamba":
             caches[gname] = mamba_states(n)
         else:  # zamba_super
             attn = _attn_cache_zeros(cfg, batch, max_len, dtype, dev)
@@ -273,8 +327,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
 def _decoder_block_decode(p, cfg, h, cache, pos):
     a_out, cache = attn_decode(p["attn"], cfg, _norm(cfg, h, p["ln1"]), cache, pos)
     h = h + a_out
-    h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
-    return h, cache
+    f_out, _ = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]), full_capacity=True)
+    return h + f_out, cache
 
 
 def _mamba_stack_decode(gp, cfg, h, cstack):
@@ -297,7 +351,10 @@ def decode_step(params, cfg: ArchConfig, token, caches):
     h = params["embed"][token.long()[:, None]]
     for gname, n in _ported_program(cfg):
         gp, cstack = params["groups"][gname], caches[gname]
-        if gname == "mamba":
+        if gname == "decoder":
+            for i in range(n):
+                h, _ = _decoder_block_decode(_layer(gp, i), cfg, h, _layer(cstack, i), pos)
+        elif gname == "mamba":
             h = _mamba_stack_decode(gp, cfg, h, cstack)
         else:  # zamba_super
             shared = params["shared_attn"]

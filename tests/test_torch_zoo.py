@@ -84,7 +84,7 @@ def test_reduced_configs_are_the_reference_programs():
 
 def test_other_configs_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("olmo-1b")
+        get_config("llama-3.2-vision-90b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
