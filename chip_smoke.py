@@ -60,7 +60,8 @@
    shapes, at the decoder group's (B=4, S=512, heads 32/8 at Dh 64, 16/16,
    40/40, 56/8, 32/8 and 48/8 at Dh 128; decode over a 544-slot cache with
    per-sequence ``kv_len``; mixtral's 4,096 window over a 4,608-token
-   prompt) and at ragged ones, f32 and bf16, timed beside their bounds and
+   prompt), at the cross-attention shapes of step 13 and at ragged ones,
+   f32 and bf16, timed beside their bounds and
    ``scaled_dot_product_attention`` as a yardstick (with a boolean mask
    where a window or per-sequence ``kv_len`` needs one).
 7. Serves zamba2-1.2b at full width and depth in bf16 through
@@ -123,14 +124,28 @@
    seconds and card memory; and the gateway over a socket against the
    in-process service bit for bit, with its checkpoint route and a
    restoring reboot.
+13. (Run after step 8.)  Cross attention, the zoo's last two groups:
+   seamless-m4t-medium (audio ``enc``/``dec``) at full width and depth in
+   bf16 through ``serve()``, its encoder over 512 frames and over the
+   launcher's 32, and llama-3.2-vision-90b (``vlm_super``) at full width,
+   10 of its 100 layers, over its 1,601 vision tokens (B=4 prompts of 512
+   tokens, 32 decode steps, exact launches: ``flash_attention`` once per
+   attention application of the prefill, the encoder's included,
+   ``gqa_decode`` once per self or cross layer and step; where the time
+   goes); then f32 at full width against the host's plain path with
+   prefill -> decode consistency on the card (the cross caches): seamless
+   at full depth, llama at one superblock, B=1, a 64-token prompt.  Step 6
+   holds both kernels at these shapes (non-causal, Sq != Sk, a static
+   cache with every slot valid).
 
 Any failure raises, and the exit code is then not 0.  Run from the root of
 the repository:  python3 chip_smoke.py
 (``python3 chip_smoke.py --zoo-kernels`` runs steps 1 and 6 only, ``--zoo``
 steps 1, 6, 7 and 8,
 ``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
-and 9, ``--stream`` steps 1 and 4, ``--service`` steps 1 and 5, and
-``--procs`` steps 1 and 11, and ``--learn`` steps 1 and 12: a
+and 9, ``--stream`` steps 1 and 4, ``--service`` steps 1 and 5,
+``--procs`` steps 1 and 11, ``--learn`` steps 1 and 12, and ``--cross``
+steps 1, 6 and 13: a
 quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
@@ -173,6 +188,14 @@ DEC_HEADS = ((32, 8, 64), (16, 16, 128), (40, 40, 128), (56, 8, 128), (32, 8, 12
              (48, 8, 128))
 DEC_LONG_SEQ, DEC_LONG_TOKENS = 4608, 16    # mixtral at B=1: the 4,096 window bites
 DEC_MOE_LAYERS = 2           # phi3.5-moe's depth in the f32 agreement
+# cross attention: seamless-m4t-medium at full width and depth (its encoder
+# over 512 frames, and the launcher's 32), llama-3.2-vision-90b at full
+# width cut to 2 of its 20 superblocks (10 of 100 layers, ~21 GB of bf16)
+AUDIO_ARCH, VLM_ARCH = "seamless-m4t-medium", "llama-3.2-vision-90b"
+AUDIO_FRAMES, LAUNCHER_FRAMES = 512, 32
+VLM_LAYERS = 10
+AUDIO_AGREE_FRAMES = 100     # f32 agreement: frames off the 64-key tile
+VLM_AGREE_SEQ = 64           # ... llama at one superblock, B=1: the host's plain path in ~1 min
 COLD_SETS = 6                # inputs rotated to time gqa_decode and ssd_scan cold in L2
 # backward kernels against their plain versions (f32, sums over the reverse
 # index in another order than the plain version's index_add_)
@@ -1119,6 +1142,7 @@ def zoo_kernel_checks(dev) -> dict:
     yardstick) and at ragged shapes (checked only), in f32 and bf16."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.gqa_decode import gqa_decode_cuda
@@ -1242,7 +1266,7 @@ def zoo_kernel_checks(dev) -> dict:
             case["bound_ms"], case["bound_by"] = bound(tensor_bytes(q, k, v, out), flops, dtype)
             case["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v, causal, window))
             case["plain_ms"] = time_ms(plain)
-            if window is None and sq == sk:
+            if window is None and (sq == sk or not causal):
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, k, v, is_causal=causal, enable_gqa=hq != hkv)
             else:   # the band as a boolean mask
@@ -1258,11 +1282,14 @@ def zoo_kernel_checks(dev) -> dict:
         name = str(dtype).split(".")[-1]
         q, k, v = randn(b, hq, dh, dtype=dtype), randn(b, hkv, s, dh, dtype=dtype), \
             randn(b, hkv, s, dh, dtype=dtype)
-        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        # lens None: every slot valid, kv_len None (a cross layer's static cache)
+        kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
         out = gqa_decode_cuda(q, k, v, kv_len, window)
         plain = lambda: ref.gqa_decode_ref(q, k, v, kv_len, window)  # noqa: E731
         want = plain()
-        shape = f"B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} w={window} kv_len={lens} {name}"
+        shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} Dh={dh} w={window} "
+                 f"kv_len={'all' if lens is None else lens} {name}")
+        lens = [s] * b if lens is None else lens
         err = check(out, want, name, f"gqa_decode {shape}")
         split_err = check(out, ref.gqa_decode_split_ref(q, k, v, kv_len, window), name,
                           f"gqa_decode {shape} against the split arithmetic")
@@ -1271,12 +1298,13 @@ def zoo_kernel_checks(dev) -> dict:
                     bound_ms=None, bound_by=None, library_ms=None)
         if timed:
             rows = sum(max(min(n, s) - (max(n - window, 0) if window else 0), 0) for n in lens)
-            moved = tensor_bytes(q, out, kv_len) + 2 * rows * hkv * dh * k.element_size()
+            moved = tensor_bytes(q, out, *([] if kv_len is None else [kv_len])) \
+                + 2 * rows * hkv * dh * k.element_size()
             case["bound_ms"], case["bound_by"] = bound(moved, 4 * dh * hq * rows, dtype)
             case["ms"] = time_ms(lambda: gqa_decode_cuda(q, k, v, kv_len, window))
             case["plain_ms"] = time_ms(plain)
             mask = None
-            if window is None and min(lens) == s:
+            if kv_len is None or (window is None and min(lens) == s):
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q[:, :, None], k, v, enable_gqa=hq != hkv)[:, :, 0]
             else:   # per-sequence kv_len (and window) as a boolean mask [B, 1, 1, S]
@@ -1349,6 +1377,30 @@ def zoo_kernel_checks(dev) -> dict:
         flash_case(1, 48, 8, DEC_LONG_SEQ, DEC_LONG_SEQ, 128, True, 4096, dtype, timed=True)
         long_max = DEC_LONG_SEQ + DEC_LONG_TOKENS
         gqa_case(1, 48, 8, long_max, 128, 4096, [long_max], dtype, timed=True)
+        # cross attention, non-causal with Sq != Sk and every key valid:
+        # llama-3.2-vision's self (rep 8) and cross layers (1,601 vision tokens
+        # = 3·512 + 65: a ragged last key tile; 25 decode splits of 64 and one
+        # of a single slot); seamless's encoder (non-causal self at 512 and 32
+        # frames, the 512 case also its cross shape), cross over 32 frames
+        # (fewer keys than one tile; one decode split) and its decoder's self
+        # attention
+        vlm_tv = get_config(VLM_ARCH).num_vision_tokens
+        flash_case(ZOO_BATCH, 64, 8, ZOO_SEQ, ZOO_SEQ, 128, True, None, dtype, timed=True)
+        flash_case(ZOO_BATCH, 64, 8, ZOO_SEQ, vlm_tv, 128, False, None, dtype, timed=True)
+        gqa_case(ZOO_BATCH, 64, 8, s_max, 128, None, dec_lens, dtype, timed=True)
+        gqa_case(ZOO_BATCH, 64, 8, vlm_tv, 128, None, None, dtype, timed=True)
+        for frames in (AUDIO_FRAMES, LAUNCHER_FRAMES):
+            flash_case(ZOO_BATCH, 16, 16, frames, frames, 64, False, None, dtype, timed=True)
+            gqa_case(ZOO_BATCH, 16, 16, frames, 64, None, None, dtype, timed=True)
+        flash_case(ZOO_BATCH, 16, 16, ZOO_SEQ, LAUNCHER_FRAMES, 64, False, None, dtype,
+                   timed=True)
+        flash_case(ZOO_BATCH, 16, 16, ZOO_SEQ, ZOO_SEQ, 64, True, None, dtype, timed=True)
+        gqa_case(ZOO_BATCH, 16, 16, s_max, 64, None, dec_lens, dtype, timed=True)
+        # ragged: one query row over the vision tokens; a static cache of one
+        # slot, of one split plus one slot
+        flash_case(2, 8, 2, 1, vlm_tv, 64, False, None, dtype, timed=False)
+        gqa_case(2, 8, 2, 1, 64, None, None, dtype, timed=False)
+        gqa_case(2, 8, 2, 65, 128, None, None, dtype, timed=False)
     # f32 takes any N and P: N and P not multiples of 4 take its scalar loads
     ssd_case(1, 70, 2, 6, 10, torch.float32, timed=False)
     torch.cuda.synchronize()
@@ -1358,45 +1410,51 @@ def zoo_kernel_checks(dev) -> dict:
     return results
 
 
-def _attn_layers(cfg) -> int:
-    """Attention applications per forward (one flash_attention launch each,
-    one gqa_decode launch each per decode step)."""
-    if cfg.arch_type in ("dense", "moe"):
-        return cfg.num_layers
+def _attn_launches(cfg) -> tuple[int, int]:
+    """Attention applications per prefill (one flash_attention launch each)
+    and per decode step (one gqa_decode launch each): a vlm's every layer,
+    self or cross; an audio model's encoder self, decoder self and cross
+    layers in prefill, and the decoder's two in decode."""
+    if cfg.arch_type in ("dense", "moe", "vlm"):
+        return cfg.num_layers, cfg.num_layers
     if cfg.arch_type == "hybrid":
-        return cfg.num_layers // cfg.attn_every
-    return 0
+        return (cfg.num_layers // cfg.attn_every,) * 2
+    if cfg.arch_type == "audio":
+        return 3 * cfg.num_layers, 2 * cfg.num_layers
+    return 0, 0
 
 
 def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
-              warm: bool = False, profile: bool = True) -> dict:
+              warm: bool = False, profile: bool = True, frames: int = LAUNCHER_FRAMES) -> dict:
     """``cfg`` with random weights served through ``serve()`` on the card:
-    prefill ``batch`` prompts of ``seq`` tokens, decode ``tokens``.  The
-    launch counters are zeroed just before the run and read just after, and
-    must be exactly one ``flash_attention`` per attention layer, one
-    ``gqa_decode`` per attention layer and step, one ``ssd_scan`` per
-    Mamba2 layer and nothing else; every logit finite.  With ``profile``,
-    where the time of prefill and of a decode step goes (the same weights
-    and prompts, ``torch.profiler``)."""
+    prefill ``batch`` prompts of ``seq`` tokens (with a vlm's vision tokens,
+    an audio model's ``frames`` frames), decode ``tokens``.  The launch
+    counters are zeroed just before the run and read just after, and must
+    be exactly one ``flash_attention`` per attention application of the
+    prefill, one ``gqa_decode`` per attention application of each step
+    (:func:`_attn_launches`), one ``ssd_scan`` per Mamba2 layer and nothing
+    else; every logit finite.  With ``profile``, where the time of prefill
+    and of a decode step goes (the same weights and inputs,
+    ``torch.profiler``)."""
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import serve, serve_inputs
     from repro_torch.models import decode_step, init_params, prefill
 
     name = f"zoo {cfg.name}{label}"
     if warm:
-        serve(cfg, batch, seq, 2, seed=0, device=dev)
+        serve(cfg, batch, seq, 2, seed=0, device=dev, frames=frames)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     _build.reset_launches()
-    out = serve(cfg, batch, seq, tokens, seed=0, device=dev)
+    out = serve(cfg, batch, seq, tokens, seed=0, device=dev, frames=frames)
     counts = dict(_build.LAUNCHES)
 
-    n_attn = _attn_layers(cfg)
+    n_prefill, n_step = _attn_launches(cfg)
     expected = dict.fromkeys(counts, 0)
     expected.update(ssd_scan=cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0,
-                    flash_attention=n_attn, gqa_decode=n_attn * tokens)
+                    flash_attention=n_prefill, gqa_decode=n_step * tokens)
     if counts != expected:
         raise AssertionError(f"{name}: launches {counts}, expected {expected}")
     ids = out["token_ids"]
@@ -1411,6 +1469,10 @@ def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
                decode_s=out["decode_s"], ms_per_step=out["ms_per_step"],
                tokens_per_s=out["tokens_per_s"],
                peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=counts)
+    if cfg.arch_type == "vlm":
+        row["vision_tokens"] = cfg.num_vision_tokens
+    if cfg.arch_type == "audio":
+        row["frames"] = frames
     print(f"{name} {cfg.dtype} B={batch} S={seq}: prefill {out['prefill_s']:.4f} s, "
           f"decode {out['ms_per_step']:.2f} ms/step ({out['tokens_per_s']:.1f} tok/s) over "
           f"{tokens} steps, peak {row['peak_gib']:.2f} GiB, launches {counts}")
@@ -1418,12 +1480,11 @@ def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
         return row
 
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, seq))).to(dev)
+    prompts, extra = serve_inputs(cfg, batch, seq, 0, frames, device=dev)
     state = {}
 
     def run_prefill():
-        state["logits"], state["cache"] = prefill(params, cfg, prompts, seq + tokens)
+        state["logits"], state["cache"] = prefill(params, cfg, prompts, seq + tokens, extra)
 
     steps = min(8, tokens)   # within the cache's capacity
 
@@ -1441,7 +1502,7 @@ def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
         row.update(step_profiled_ms=wall * 1e3 / steps, decode_busy_share=busy,
                    decode_top=[(k, ms / steps) for k, ms in top],
                    step_kernels=n / steps)
-    del params, state
+    del params, state, extra
     torch.cuda.empty_cache()
     print(f"{name} card busy: prefill {row['prefill_busy_share']:.1%} of "
           f"{row['prefill_profiled_ms']:.2f} ms ({row['prefill_kernels']} kernels), decode "
@@ -1488,13 +1549,16 @@ class RouteLog:
         transformer.moe_apply = self._apply
 
 
-def zoo_agreement(dev, cfg=None, seed: int = 1) -> dict:
+def zoo_agreement(dev, cfg=None, seed: int = 1, batch: int = 2, seq: int = 128,
+                  frames: int = LAUNCHER_FRAMES) -> dict:
     """f32 at full width: the kernel path's forward, prefill and 4 decode
     logits against the port's plain path on the host, and prefill -> decode
     consistency on the card and on the host (the depth of many blocks with
     random weights amplifies f32 rounding, so the host's own consistency is
     the floor the card is read against), each within ZOO_TOL of the logits'
-    scale.  ``cfg`` defaults to zamba2-1.2b at full depth.
+    scale; ``batch`` sequences of ``seq`` prompt tokens, with a vlm's
+    vision tokens or an audio model's ``frames`` frames, drawn as
+    ``serve()`` draws them.  ``cfg`` defaults to zamba2-1.2b at full depth.
 
     For a MoE config the published capacity factor drops assignments, and
     decode runs at full capacity, so the forward is first held card against
@@ -1504,6 +1568,7 @@ def zoo_agreement(dev, cfg=None, seed: int = 1) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_inputs
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.params import tree_map
 
@@ -1514,21 +1579,21 @@ def zoo_agreement(dev, cfg=None, seed: int = 1) -> dict:
     moe = cfg.arch_type == "moe"
     # E slots per k·T/E: cap >= k·T, so nothing can drop
     nodrop = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts)) if moe else cfg
-    b, s, n_dec = 2, 128, 4
+    b, s, n_dec = batch, seq, 4
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (b, s + n_dec)))
+    tokens, extra = serve_inputs(cfg, b, s + n_dec, seed, frames, device="cpu")
 
     def run(p, device):
         tok = tokens.to(device)
+        ext = {k: t.to(device) for k, t in extra.items()}
         outs, published = [], None
         with torch.no_grad():
             if moe:
                 with RouteLog() as published:
                     outs.append(forward(p, cfg, tok)[0])
             with RouteLog() as log:
-                full, _, _ = forward(p, nodrop, tok)
-                last, cache = prefill(p, nodrop, tok[:, :s], s + n_dec)
+                full, _, _ = forward(p, nodrop, tok, ext)
+                last, cache = prefill(p, nodrop, tok[:, :s], s + n_dec, ext)
                 steps = []
                 for i in range(n_dec):
                     lg, cache = decode_step(p, nodrop, tok[:, s + i], cache)
@@ -1556,6 +1621,10 @@ def zoo_agreement(dev, cfg=None, seed: int = 1) -> dict:
             for what, got, want in pairs}
     depth = ("full width and depth" if cfg.num_layers == full_depth else
              f"full width, depth {cfg.num_layers} of {full_depth}")
+    if cfg.arch_type == "vlm":
+        depth += f", {cfg.num_vision_tokens} vision tokens"
+    if cfg.arch_type == "audio":
+        depth += f", {frames} frames"
     line = (f"zoo f32 {cfg.name} {depth}, B={b} S={s} + {n_dec} decode steps: "
             "max|d| over the logits' scale: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
             + f" (limit {ZOO_TOL:g}); card {t1 - t0:.2f} s, host plain path {t2 - t1:.2f} s")
@@ -1670,6 +1739,42 @@ def decoder_phase(dev) -> dict:
         for name, c in row["launches"].items():
             launches[name] += c
     return dict(rows=rows, f32_agreement_of_scale=agreement, launches=launches)
+
+
+def cross_phase(dev) -> dict:
+    """Cross attention on the card: seamless-m4t-medium at full width and
+    depth in bf16 through ``serve()`` with its encoder over AUDIO_FRAMES
+    frames and over the launcher's 32, and llama-3.2-vision-90b at full
+    width, VLM_LAYERS of its 100 layers, over its 1,601 vision tokens
+    (exact launches, where the time goes); then the f32 agreements against
+    the host's plain path with prefill -> decode consistency (which holds
+    the cross caches): seamless at full depth, llama at one superblock."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    audio, vlm = get_config(AUDIO_ARCH), get_config(VLM_ARCH)
+    cut = dataclasses.replace(vlm, num_layers=VLM_LAYERS)
+    rows = [serve_row(dev, audio, ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS, warm=True,
+                      frames=AUDIO_FRAMES, label=f" ({AUDIO_FRAMES} frames)"),
+            serve_row(dev, audio, ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS,
+                      label=f" ({LAUNCHER_FRAMES} frames)"),
+            serve_row(dev, cut, ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS,
+                      label=f" (depth {VLM_LAYERS} of {vlm.num_layers}, "
+                            f"{vlm.num_vision_tokens} vision tokens)")]
+    rows[-1]["full_layers"] = vlm.num_layers
+    agreement = {
+        AUDIO_ARCH: zoo_agreement(dev, audio, seed=4, frames=AUDIO_AGREE_FRAMES),
+        VLM_ARCH: zoo_agreement(dev, dataclasses.replace(vlm, num_layers=vlm.cross_attn_every),
+                                seed=5, batch=1, seq=VLM_AGREE_SEQ)}
+    launches = dict.fromkeys(rows[0]["launches"], 0)
+    for row in rows:
+        for name, c in row["launches"].items():
+            launches[name] += c
+    seconds = time.perf_counter() - t0
+    print(f"cross phase: {seconds:.1f} s")
+    return dict(rows=rows, f32_agreement_of_scale=agreement, launches=launches, seconds=seconds)
 
 
 def _timed(obj, name: str, log: list) -> None:
@@ -3541,6 +3646,10 @@ def main() -> int:
     if "--zoo-kernels" in sys.argv[1:]:
         zoo_kernel_checks(dev)
         return 0
+    if "--cross" in sys.argv[1:]:
+        zoo_kernel_checks(dev)
+        print("cross: " + json.dumps(cross_phase(dev)))
+        return 0
     if "--zoo" in sys.argv[1:]:
         zoo_kernel_checks(dev)
         zoo = zoo_slice(dev)
@@ -3717,6 +3826,12 @@ def main() -> int:
         launches[name] += c
     print("decoder: " + json.dumps(decoder))
 
+    # ----------------------- 13. cross attention: the vlm and audio groups
+    cross = cross_phase(dev)
+    for name, c in cross["launches"].items():
+        launches[name] += c
+    print("cross: " + json.dumps(cross))
+
     # ------------------------------------------------------- 10. kernel line
     def pick(name, shape_prefix, shape_suffix=""):
         return next(c for c in results[name] if c["shape"].startswith(shape_prefix)
@@ -3820,11 +3935,19 @@ def main() -> int:
     # granite-3-2b's serving shape (bf16)
     for entry in kernels:
         entry["decoder_launches"] = decoder["launches"][entry["name"]]
+        entry["cross_launches"] = cross["launches"][entry["name"]]
     by_name["flash_attention"]["decoder_case"] = {k: pick(
         "flash_attention", f"B={ZOO_BATCH} Hq=32 Hkv=8 Sq={ZOO_SEQ} Sk={ZOO_SEQ} Dh=64 "
         "causal w=None bfloat16")[k] for k in case_keys}
     by_name["gqa_decode"]["decoder_case"] = {k: pick(
         "gqa_decode", f"B={ZOO_BATCH} Hq=32 Hkv=8 S={ZOO_SEQ + ZOO_TOKENS} Dh=64 w=None",
+        "bfloat16")[k] for k in case_keys}
+    # the cross runs: each kernel at llama-3.2-vision's cross layer (bf16)
+    by_name["flash_attention"]["cross_case"] = {k: pick(
+        "flash_attention", f"B={ZOO_BATCH} Hq=64 Hkv=8 Sq={ZOO_SEQ} Sk=1601 Dh=128 "
+        "full w=None bfloat16")[k] for k in case_keys}
+    by_name["gqa_decode"]["cross_case"] = {k: pick(
+        "gqa_decode", f"B={ZOO_BATCH} Hq=64 Hkv=8 S=1601 Dh=128 w=None kv_len=all",
         "bfloat16")[k] for k in case_keys}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,20 +1,18 @@
 """Architecture registry of the port.
 
-The ids and aliases are the reference's (``repro.configs``).  The port has
-the configurations whose block programs it runs, copied value for value:
-``zamba2-1.2b`` (hybrid), ``mamba2-370m`` (ssm), the ``decoder`` group's
-dense ``granite-3-2b``, ``olmo-1b``, ``qwen1.5-32b`` and ``yi-34b`` and MoE
-``phi3.5-moe-42b-a6.6b`` and ``mixtral-8x22b``; and the paper's own model,
-``lnn_fraud``.  The other known ids (``llama-3.2-vision-90b``,
-``seamless-m4t-medium``) raise ``NotImplementedError``; ``ROADMAP.md``
-(queue 1 item 5) lists the zoo's remaining groups in the order they are to
-be ported.
+The ids and aliases are the reference's (``repro.configs``), and so are
+the configurations, copied value for value: ``zamba2-1.2b`` (hybrid),
+``mamba2-370m`` (ssm), the ``decoder`` group's dense ``granite-3-2b``,
+``olmo-1b``, ``qwen1.5-32b`` and ``yi-34b`` and MoE
+``phi3.5-moe-42b-a6.6b`` and ``mixtral-8x22b``, the vlm
+``llama-3.2-vision-90b`` and the audio encoder-decoder
+``seamless-m4t-medium``; and the paper's own model, ``lnn_fraud``.
 """
 from __future__ import annotations
 
 import importlib
 
-#: the reference's architecture ids, and those the port has
+#: the reference's architecture ids
 ARCH_IDS = [
     "mamba2_370m",
     "granite_3_2b",
@@ -27,8 +25,6 @@ ARCH_IDS = [
     "mixtral_8x22b",
     "qwen1_5_32b",
 ]
-PORTED_IDS = ("mamba2_370m", "granite_3_2b", "yi_34b", "phi3_5_moe", "olmo_1b",
-              "zamba2_1_2b", "mixtral_8x22b", "qwen1_5_32b")
 
 # canonical CLI names (dashes) -> module names
 CLI_ALIASES = {
@@ -51,16 +47,9 @@ def get_config(arch: str):
     mod_name = CLI_ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCH_IDS and mod_name != "lnn_fraud":
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(CLI_ALIASES)}")
-    if mod_name in ARCH_IDS and mod_name not in PORTED_IDS:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: the port serves the ssm, hybrid, dense "
-            f"and moe configurations {sorted(PORTED_IDS)}; ROADMAP.md queue 1 item 5 "
-            "lists the zoo's remaining groups in order")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
 def all_configs():
-    """``{arch id: config}`` for every zoo id, as the reference's; raises
-    ``NotImplementedError`` (through :func:`get_config`) while an id is
-    unported, never returning a subset."""
+    """``{arch id: config}`` for every zoo id, as the reference's."""
     return {aid: get_config(aid) for aid in ARCH_IDS}

@@ -8,8 +8,10 @@
   batch of prompts, then decode greedily.  Weights are random, drawn from a
   ``torch.Generator`` seeded with ``--seed`` on the serving device; the
   prompts are the reference's
-  (``numpy.random.default_rng(seed).integers(0, vocab, (B, S))``).  It
-  serves ``get_config(arch).reduced()``, as the reference does.
+  (``numpy.random.default_rng(seed).integers(0, vocab, (B, S))``), and so
+  are a vlm's vision embeddings and an audio model's frames, drawn next
+  from the same generator.  It serves ``get_config(arch).reduced()``, as
+  the reference does.
 
   python -m repro_torch.launch.serve [--paper] [--users 400 --requests 200]
   python -m repro_torch.launch.serve --arch zamba2-1.2b [--batch 4 --seq 64
@@ -83,11 +85,32 @@ def serve_paper(users: int = 400, requests: int = 200, seed: int = 0, device=Non
             "latency_ms": {"p50": float(p50), "p95": float(p95), "p99": float(p99)}}
 
 
+def serve_inputs(cfg: ArchConfig, batch: int, seq: int, seed: int = 0, frames: int = 32,
+                 device=None):
+    """The reference's ``serve_arch`` inputs on ``device`` (default: CUDA):
+    ``batch`` prompts of ``seq`` token ids, then ``extra`` from the same
+    ``numpy.random.default_rng(seed)``: ``vision`` [B, num_vision_tokens,
+    d] for a vlm config, ``frames`` [B, frames, d] for an audio one, f32.
+    Returns (prompts, extra)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to(dev)
+    extra = {}
+    if cfg.arch_type == "vlm":
+        shape = (batch, cfg.num_vision_tokens, cfg.d_model)
+        extra["vision"] = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    if cfg.arch_type == "audio":
+        shape = (batch, frames, cfg.d_model)
+        extra["frames"] = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    return prompts, extra
+
+
 def serve(cfg: ArchConfig, batch: int, seq: int, tokens: int, seed: int = 0,
-          device=None) -> dict:
+          device=None, frames: int = 32) -> dict:
     """Build ``cfg`` with random weights from ``seed`` on ``device``
-    (default: CUDA), prefill ``batch`` random prompts of ``seq`` tokens and
-    greedily decode ``tokens`` tokens.
+    (default: CUDA), prefill ``batch`` random prompts of ``seq`` tokens
+    (with a vlm's vision tokens or an audio model's ``frames`` frames,
+    :func:`serve_inputs`) and greedily decode ``tokens`` tokens.
 
     Returns host-clock timings of the prefill and of the decode loop (each
     ends in a device synchronize), ``token_ids`` [B, tokens + 1] (the token
@@ -95,12 +118,11 @@ def serve(cfg: ArchConfig, batch: int, seq: int, tokens: int, seed: int = 0,
     every logit was finite."""
     dev = resolve_device(device)
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
-    rng = np.random.default_rng(seed)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to(dev)
+    prompts, extra = serve_inputs(cfg, batch, seq, seed, frames, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, cache = prefill(params, cfg, prompts, seq + tokens)
+        logits, cache = prefill(params, cfg, prompts, seq + tokens, extra)
         finite = torch.isfinite(logits).all()
         tok = logits.argmax(-1)
         _sync(dev)

@@ -8,8 +8,12 @@ for CUDA tensors, the reference's XLA paths on the CPU).
 Physical head padding (``cfg.physical_heads``/``physical_kv_heads``) is kept
 as the reference has it: padded q heads are computed heads whose ``w_o``
 rows are zero; padded kv heads are tied replicas of logical kv heads (or
-zero heads when the padding is ragged).  Cross attention (``kv_x`` /
-``cross=True``) is not ported: no ported configuration uses it.
+zero heads when the padding is ragged).
+
+Cross attention (``kv_x`` in prefill, ``cross=True`` in decode) takes K and
+V from another sequence (vision tokens, encoder frames): no mask, no
+window, RoPE on q only; in decode the cache holds that sequence's K/V,
+every slot valid, and is never written.
 """
 from __future__ import annotations
 
@@ -19,15 +23,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, dense_init, torch_dtype
 
 
-def _not_ported_cross():
-    raise NotImplementedError(
-        "cross attention is not ported yet (ROADMAP.md queue 1: vlm_super and "
-        "the audio enc/dec groups)")
-
-
 def attn_init(gen: torch.Generator, cfg, cross: bool = False, device=None):
-    if cross:
-        _not_ported_cross()
+    """The projections of one attention layer.  ``cross`` is the
+    reference's flag: a cross layer initialises as a self layer does."""
     dtype = torch_dtype(cfg.dtype)
     hq, hkv, dh, d = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim, cfg.d_model
     wq = dense_init(gen, (d, cfg.num_heads, dh), dtype, device=device)
@@ -65,22 +63,28 @@ def attn_init(gen: torch.Generator, cfg, cross: bool = False, device=None):
 
 
 def _project_qkv(params, cfg, x, kv_x=None):
-    """q [B, Hq, S, Dh], k/v [B, Hkv, S, Dh] (views of the projections)."""
-    if kv_x is not None:
-        _not_ported_cross()
+    """q [B, Hq, S, Dh], k/v [B, Hkv, Sk, Dh] (views of the projections), K
+    and V from ``kv_x`` [B, Sk, d] where given, else from ``x``.
+
+    A ``kv_x`` of another dtype than the weights (the f32 vision embeddings
+    of a bf16 model) is projected in the promoted dtype, as the reference's
+    type promotion does, and K/V are then rounded once to ``x``'s dtype:
+    the values the reference's decode cache holds."""
     hq, hkv, dh = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = q.reshape(b, s, hq, dh).transpose(1, 2)
-    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
-    return q, k, v
+    ct = torch.promote_types(src.dtype, params["wk"].dtype)
+    kv = []
+    for w, bias in (("wk", "bk"), ("wv", "bv")):
+        t = src.to(ct) @ params[w].to(ct)
+        if cfg.qkv_bias:
+            t = t + params[bias].to(ct)
+        kv.append(t.to(x.dtype).reshape(b, sk, hkv, dh).transpose(1, 2))
+    return q.reshape(b, s, hq, dh).transpose(1, 2), kv[0], kv[1]
 
 
 ATTN_IMPLS = ("blockwise", "banded")
@@ -88,9 +92,13 @@ ATTN_IMPLS = ("blockwise", "banded")
 
 def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
                attn_impl: str = "blockwise"):
-    """Full-sequence self attention (prefill).  x: [B, S, d].
+    """Full-sequence attention (prefill).  x: [B, S, d].
 
-    Returns (out [B, S, d], (k, v)) with k/v [B, Hkv, S, Dh] for the cache.
+    ``kv_x`` [B, Sk, d] switches to cross attention: K/V from ``kv_x``, RoPE
+    (with ``use_rope``) on q only, no causal mask and no window; the
+    kernel takes q rows against all Sk keys.  Returns (out [B, S, d], (k,
+    v)) with k/v [B, Hkv, Sk, Dh] for the cache.
+
     ``attn_impl`` is the reference's choice of XLA path, ``"blockwise"`` or
     ``"banded"`` (its band-only sliding-window attention, for a windowed
     configuration such as mixtral-8x22b).  Both take
@@ -104,9 +112,12 @@ def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
     if use_rope:
         pos = torch.arange(s, device=x.device)[None, None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, pos, cfg.rope_theta)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = ops.flash_attention(q, k, v, causal=causal, window=cfg.window)
+    self_attn = kv_x is None
+    out = ops.flash_attention(q, k, v, causal=causal and self_attn,
+                              window=cfg.window if self_attn else None)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return out @ params["wo"], (k, v)
 
@@ -122,21 +133,28 @@ def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False):
     same call shape.  The attention over the cache is
     ``kernels.ops.gqa_decode`` with ``kv_len = pos + 1`` for every sequence
     (the ring's fill level for a ring cache) and the config's window.
+
+    ``cross=True``: the cache holds the static K/V of the encoder frames or
+    vision tokens; q gets no RoPE, nothing is written, and the attention
+    runs over every slot (``kv_len`` None, no window).
     Returns (out [B, 1, d], cache).
     """
-    if cross:
-        _not_ported_cross()
     hq, hkv, dh = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim
     b = x1.shape[0]
     q = x1 @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    q = q.reshape(b, 1, hq, dh).transpose(1, 2)
+    if cross:
+        out = ops.gqa_decode(q[:, :, 0].contiguous(), cache["k"], cache["v"])
+        return out.reshape(b, 1, hq * dh) @ params["wo"], cache
     k1 = x1 @ params["wk"]
     v1 = x1 @ params["wv"]
     if cfg.qkv_bias:
-        q = q + params["bq"]
         k1 = k1 + params["bk"]
         v1 = v1 + params["bv"]
     at = torch.full((1, 1, 1), pos, device=x1.device)
-    q = apply_rope(q.reshape(b, 1, hq, dh).transpose(1, 2), at, cfg.rope_theta)
+    q = apply_rope(q, at, cfg.rope_theta)
     k1 = apply_rope(k1.reshape(b, 1, hkv, dh).transpose(1, 2), at, cfg.rope_theta)
     v1 = v1.reshape(b, 1, hkv, dh).transpose(1, 2)
     k, v = cache["k"], cache["v"]

@@ -1,5 +1,5 @@
-"""The zoo's composable model, for the groups the port has: ``decoder``
-(dense and MoE), ``mamba`` and ``zamba_super``.
+"""The zoo's composable model: the ``decoder`` (dense and MoE), ``mamba``,
+``zamba_super``, ``vlm_super`` and audio ``enc``/``dec`` groups.
 
 The reference's ``repro.models.transformer`` with tensors.  A config
 compiles to a *block program*, an ordered list of groups, each a stack of
@@ -9,16 +9,23 @@ layers whose parameters are stacked on a leading axis (the reference's
   dense/moe   [('decoder', L)]
   ssm         [('mamba', L)]
   hybrid      [('zamba_super', L // k)] + [('mamba', L % k)]   (shared attn)
+  vlm         [('vlm_super', L // k)]      (k-1 self layers + 1 cross layer)
+  audio       encoder [('enc', L)] + decoder [('dec', L)]
 
 A ``decoder`` layer is attention then an FFN, or the MoE layer
 (``models.moe``) for a ``moe`` config, whose load-balancing loss the
 forward sums over layers as ``aux``; decode runs the MoE at full capacity,
 as the reference.  A ``zamba_super`` runs ``attn_every`` Mamba2 blocks and
 then the ONE shared attention+MLP block, whose parameters (``shared_attn``)
-are shared by every application, with one KV cache per application.  The
-``vlm_super`` and audio ``enc``/``dec`` groups raise
-``NotImplementedError``; ``ROADMAP.md`` queue 1 holds them.  There is no
-``use_pallas``: the tensors' device picks the kernel path.
+are shared by every application, with one KV cache per application.  A
+``vlm_super`` runs ``cross_attn_every - 1`` decoder layers, then one cross
+layer over the vision tokens (``extra["vision"]``), its attention scaled
+by ``tanh(gate)`` (an f32 leaf); the audio model encodes the frames
+(``extra["frames"]``, non-causal self attention with RoPE, no cache) and
+runs only the ``dec`` group over tokens, each layer self attention, cross
+attention over the encoder's output and an FFN.  The cross layers' decode
+caches hold the static K/V of the vision tokens or the encoder's output.
+There is no ``use_pallas``: the tensors' device picks the kernel path.
 
 Entry points: ``init_params``, ``forward``, ``prefill`` (logits + cache),
 ``init_cache``, ``decode_step`` (one token).  ``forward_train`` waits for
@@ -36,15 +43,6 @@ from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.params import tree_map
 from repro_torch.utils.device import resolve_device
-
-PORTED_GROUPS = ("decoder", "mamba", "zamba_super")
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 lists the zoo's remaining "
-        "groups (vlm_super, enc/dec) in order")
-
 
 # ---------------------------------------------------------------------------
 # block program
@@ -70,14 +68,6 @@ def build_program(cfg: ArchConfig) -> list[tuple[str, int]]:
     if cfg.arch_type == "audio":
         return [("enc", cfg.num_layers), ("dec", cfg.num_layers)]
     raise ValueError(cfg.arch_type)
-
-
-def _ported_program(cfg: ArchConfig):
-    prog = build_program(cfg)
-    for gname, _ in prog:
-        if gname not in PORTED_GROUPS:
-            _not_ported(f"the {gname!r} group ({cfg.name}, {cfg.arch_type})")
-    return prog
 
 
 def _norm(cfg, x, scale):
@@ -118,6 +108,32 @@ def _decoder_layer_init(gen, cfg, device=None):
     return p
 
 
+def _cross_layer_init(gen, cfg, device=None):
+    """A vlm cross layer: attention over the vision tokens, an FFN, and the
+    mllama-style gate, f32 whatever ``cfg.dtype`` is."""
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "attn": attn_init(gen, cfg, cross=True, device=device),
+        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_type, dtype, device=device),
+        "gate": torch.full((1,), 0.1, dtype=torch.float32, device=device),
+    }
+
+
+def _dec_layer_init(gen, cfg, device=None):
+    """Audio decoder layer: self attention, cross attention, FFN."""
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "ln_x": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "self": attn_init(gen, cfg, device=device),
+        "cross": attn_init(gen, cfg, cross=True, device=device),
+        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_type, dtype, device=device),
+    }
+
+
 def _stack_init(init_fn, gen, n, cfg, device):
     return _stack([init_fn(gen, cfg, device=device) for _ in range(n)])
 
@@ -131,10 +147,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
     and dtypes are the reference's (``groups/decoder/attn/wq`` has a leading
     ``[L]`` axis, ``groups/decoder/moe/w_gate`` is ``[L, E, d, f]``,
     ``groups/zamba_super/mamba/w_in`` has leading axes ``[n_super,
-    attn_every]``); the values are not.
+    attn_every]``, ``groups/vlm_super/self/attn/wq`` ``[n_super,
+    cross_attn_every - 1]``, ``groups/vlm_super/cross/gate`` ``[n_super, 1]``
+    in f32); the values are not.
     """
     dev = resolve_device(device)
-    prog = _ported_program(cfg)
     dtype = torch_dtype(cfg.dtype)
     v = cfg.physical_vocab
     params = {
@@ -143,16 +160,24 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
         "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         "groups": {},
     }
-    for gname, n in prog:
-        if gname == "decoder":
+    for gname, n in build_program(cfg):
+        if gname in ("decoder", "enc"):
             params["groups"][gname] = _stack_init(_decoder_layer_init, gen, n, cfg, dev)
         elif gname == "mamba":
             params["groups"][gname] = _stack_init(mamba_init, gen, n, cfg, dev)
-        else:  # zamba_super
+        elif gname == "zamba_super":
             params["groups"][gname] = {"mamba": _stack(
                 [_stack_init(mamba_init, gen, cfg.attn_every, cfg, dev)
                  for _ in range(n)])}
             params["shared_attn"] = _decoder_layer_init(gen, cfg, device=dev)
+        elif gname == "vlm_super":
+            params["groups"][gname] = {
+                "self": _stack([_stack_init(_decoder_layer_init, gen, cfg.cross_attn_every - 1,
+                                            cfg, dev) for _ in range(n)]),
+                "cross": _stack_init(_cross_layer_init, gen, n, cfg, dev),
+            }
+        else:  # dec
+            params["groups"][gname] = _stack_init(_dec_layer_init, gen, n, cfg, dev)
     return params
 
 
@@ -170,12 +195,36 @@ def _ffn_or_moe(p, cfg, f_in, *, full_capacity=False):
     return ffn_apply(p["ffn"], f_in, cfg.ffn_type), None
 
 
-def _decoder_block(p, cfg, h, *, want_cache, attn_impl="blockwise"):
+def _decoder_block(p, cfg, h, *, want_cache, attn_impl="blockwise", causal=True):
     """Returns (h, cache, aux)."""
-    a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), attn_impl=attn_impl)
+    a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), causal=causal,
+                               attn_impl=attn_impl)
     h = h + a_out
     f_out, aux = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]))
     return h + f_out, ({"k": k, "v": v} if want_cache else None), aux
+
+
+def _cross_block(p, cfg, h, memory, *, want_cache):
+    """A vlm cross layer over ``memory`` (the vision tokens), its attention
+    scaled by tanh of the f32 gate.  Returns (h, cache)."""
+    a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), kv_x=memory,
+                               causal=False, use_rope=False)
+    h = h + torch.tanh(p["gate"]).to(h.dtype) * a_out
+    h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
+    return h, ({"k": k, "v": v} if want_cache else None)
+
+
+def _dec_block(p, cfg, h, memory, *, want_cache):
+    """An audio decoder layer: causal self attention, cross attention over
+    ``memory`` (the encoder's output, no gate), FFN.  Returns (h, cache)."""
+    a_out, (k, v) = attn_apply(p["self"], cfg, _norm(cfg, h, p["ln1"]))
+    h = h + a_out
+    x_out, (kx, vx) = attn_apply(p["cross"], cfg, _norm(cfg, h, p["ln_x"]), kv_x=memory,
+                                 causal=False, use_rope=False)
+    h = h + x_out
+    h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
+    cache = {"self": {"k": k, "v": v}, "cross": {"k": kx, "v": vx}} if want_cache else None
+    return h, cache
 
 
 def _mamba_stack(gp, cfg, h, want_cache):
@@ -187,12 +236,15 @@ def _mamba_stack(gp, cfg, h, want_cache):
     return h, (_stack(states) if want_cache else None)
 
 
-def _run_groups(params, cfg: ArchConfig, h, *, want_cache, attn_impl="blockwise"):
-    """Run the block program.  Returns (h, caches, aux summed over the
+def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blockwise"):
+    """Run the block program over the groups ``params`` holds (the audio
+    forward passes only ``dec``).  Returns (h, caches, aux summed over the
     decoder layers, f32)."""
     caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for gname, n in _ported_program(cfg):
+    for gname, n in build_program(cfg):
+        if gname not in params["groups"]:
+            continue
         gp = params["groups"][gname]
         if gname == "decoder":
             outs = []
@@ -205,7 +257,7 @@ def _run_groups(params, cfg: ArchConfig, h, *, want_cache, attn_impl="blockwise"
             caches[gname] = _stack(outs) if want_cache else None
         elif gname == "mamba":
             h, caches[gname] = _mamba_stack(gp, cfg, h, want_cache)
-        else:  # zamba_super
+        elif gname == "zamba_super":
             shared = params["shared_attn"]
             outs = []
             for i in range(n):
@@ -214,19 +266,60 @@ def _run_groups(params, cfg: ArchConfig, h, *, want_cache, attn_impl="blockwise"
                                               attn_impl=attn_impl)
                 outs.append({"mamba": mstates, "attn": acache})
             caches[gname] = _stack(outs) if want_cache else None
+        elif gname == "vlm_super":
+            outs = []
+            for i in range(n):
+                sp, scaches = _layer(gp["self"], i), []
+                for j in range(cfg.cross_attn_every - 1):
+                    h, cache, _ = _decoder_block(_layer(sp, j), cfg, h, want_cache=want_cache,
+                                                 attn_impl=attn_impl)
+                    scaches.append(cache)
+                h, xcache = _cross_block(_layer(gp["cross"], i), cfg, h, extra["vision"],
+                                         want_cache=want_cache)
+                outs.append({"self": _stack(scaches) if want_cache else None, "cross": xcache})
+            caches[gname] = _stack(outs) if want_cache else None
+        elif gname == "dec":
+            outs = []
+            for i in range(n):
+                h, cache = _dec_block(_layer(gp, i), cfg, h, extra["memory"],
+                                      want_cache=want_cache)
+                outs.append(cache)
+            caches[gname] = _stack(outs) if want_cache else None
     return h, (caches if want_cache else {}), aux_total
+
+
+def _encode(params, cfg, frames):
+    """The audio encoder over the frame embeddings [B, Sf, d] (the frontend
+    is a stub, as in the reference): decoder layers with non-causal self
+    attention (RoPE applied); no cache."""
+    h = frames.to(torch_dtype(cfg.dtype))
+    gp = params["groups"]["enc"]
+    for i in range(gp["ln1"].shape[0]):
+        h, _, _ = _decoder_block(_layer(gp, i), cfg, h, want_cache=False, causal=False)
+    return h
 
 
 def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
             attn_impl: str = "blockwise"):
-    """tokens: [B, S] int.  Returns (logits [B, S, Vphys], caches, aux); aux
-    is the MoE balance loss summed over the decoder layers (f32, 0 without
-    MoE).  ``attn_impl``: ``"blockwise"`` or ``"banded"`` (one function on
-    the port; see ``models.attention.attn_apply``)."""
-    if extra:
-        _not_ported("vision / audio inputs (extra)")
+    """tokens: [B, S] int; ``extra``: ``{"vision": [B, Tv, d]}`` for a vlm
+    config, ``{"frames": [B, Sf, d]}`` for an audio one.  Returns (logits
+    [B, S, Vphys], caches, aux); aux is the MoE balance loss summed over
+    the decoder layers (f32, 0 without MoE).  The audio model's caches also
+    hold the encoder's output (``enc_memory``).  ``attn_impl``:
+    ``"blockwise"`` or ``"banded"`` (one function on the port; see
+    ``models.attention.attn_apply``)."""
+    extra = extra or {}
     h = params["embed"][tokens.long()]
-    h, caches, aux = _run_groups(params, cfg, h, want_cache=want_cache, attn_impl=attn_impl)
+    if cfg.arch_type == "audio":
+        memory = _encode(params, cfg, extra["frames"])
+        dec_params = {"groups": {"dec": params["groups"]["dec"]}}
+        h, caches, aux = _run_groups(dec_params, cfg, h, dict(extra, memory=memory),
+                                     want_cache=want_cache, attn_impl=attn_impl)
+        if want_cache:
+            caches["enc_memory"] = memory
+    else:
+        h, caches, aux = _run_groups(params, cfg, h, extra, want_cache=want_cache,
+                                     attn_impl=attn_impl)
     logits = _norm(cfg, h, params["final_ln"]) @ params["head"]
     return logits, caches, aux
 
@@ -237,16 +330,24 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,
 
     Returns (last_logits [B, Vphys], caches): the Mamba states as the
     forward leaves them, the attention K/V copied into zeroed
-    ``[.., max_len, Dh]`` buffers at offset 0, and ``pos`` = S.  A ring
-    cache (``cfg.ring_kv_cache``, ``window`` slots) shorter than the prompt
-    keeps the prompt's last ``window`` positions, position p at slot
-    p % window, where decode goes on writing (the reference's prefill
-    refuses a prompt longer than its ring).
+    ``[.., max_len, Dh]`` buffers at offset 0, the cross layers' K/V whole
+    (as many slots as vision tokens or frames, in the cache's dtype), and
+    ``pos`` = S.  A ring cache (``cfg.ring_kv_cache``, ``window`` slots)
+    shorter than the prompt keeps the prompt's last ``window`` positions,
+    position p at slot p % window, where decode goes on writing (the
+    reference's prefill refuses a prompt longer than its ring).
     """
+    extra = extra or {}
     b, s = tokens.shape
     logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True,
                                     attn_impl=attn_impl)
-    full = init_cache(cfg, b, max_len, device=logits.device)
+    fwd_caches.pop("enc_memory", None)   # cached per dec layer as cross K/V
+    extra_shapes = {}
+    if "vision" in extra:
+        extra_shapes["vision_len"] = extra["vision"].shape[1]
+    if "frames" in extra:
+        extra_shapes["memory_len"] = extra["frames"].shape[1]
+    full = init_cache(cfg, b, max_len, extra_shapes, device=logits.device)
     ring = bool(cfg.ring_kv_cache and cfg.window)
 
     def merge(dst, src):
@@ -279,8 +380,8 @@ def _tree_map2(fn, a, b):
 # decode: cache init + single-token step
 # ---------------------------------------------------------------------------
 
-def _attn_cache_zeros(cfg, batch, max_len, dtype, device=None):
-    shape = (batch, cfg.physical_kv_heads, max_len, cfg.head_dim)
+def _attn_cache_zeros(cfg, batch, max_len, dtype, device=None, lead=()):
+    shape = (*lead, batch, cfg.physical_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -289,9 +390,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
                device=None):
     """Zero decode cache matching ``decode_step`` on ``device`` (default:
     CUDA).  ``pos`` is a Python int.  With ``cfg.ring_kv_cache`` the
-    attention caches are ring buffers of ``window`` slots."""
-    if extra_shapes:
-        _not_ported("cross-attention caches (extra_shapes)")
+    attention caches are ring buffers of ``window`` slots.  ``extra_shapes``
+    sizes the cross caches: ``vision_len`` (default
+    ``cfg.num_vision_tokens``) and ``memory_len`` (default 1,024), as the
+    reference's."""
+    extra_shapes = extra_shapes or {}
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     if cfg.ring_kv_cache and cfg.window:
@@ -306,21 +409,32 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
                                dtype=torch.float32, device=dev),
         }
 
+    def attn_zeros(*lead, slots=max_len):
+        return _attn_cache_zeros(cfg, batch, slots, dtype, dev, lead)
+
     caches = {"pos": 0}
-    for gname, n in _ported_program(cfg):
+    for gname, n in build_program(cfg):
         n = max(n, 1)
         if gname == "decoder":
-            attn = _attn_cache_zeros(cfg, batch, max_len, dtype, dev)
-            caches[gname] = tree_map(lambda t: t.expand(n, *t.shape).contiguous(), attn)
+            caches[gname] = attn_zeros(n)
         elif gname == "mamba":
             caches[gname] = mamba_states(n)
-        else:  # zamba_super
-            attn = _attn_cache_zeros(cfg, batch, max_len, dtype, dev)
+        elif gname == "zamba_super":
             caches[gname] = {
                 "mamba": tree_map(lambda t: t.reshape(n, cfg.attn_every, *t.shape[1:]),
                                   mamba_states(n * cfg.attn_every)),
-                "attn": tree_map(lambda t: t.expand(n, *t.shape).contiguous(), attn),
+                "attn": attn_zeros(n),
             }
+        elif gname == "vlm_super":
+            caches[gname] = {
+                "self": attn_zeros(n, cfg.cross_attn_every - 1),
+                "cross": attn_zeros(n, slots=extra_shapes.get("vision_len",
+                                                              cfg.num_vision_tokens)),
+            }
+        elif gname == "dec":
+            caches[gname] = {"self": attn_zeros(n),
+                             "cross": attn_zeros(n, slots=extra_shapes.get("memory_len", 1024))}
+        # 'enc' has no decode-time cache
     return caches
 
 
@@ -349,19 +463,40 @@ def decode_step(params, cfg: ArchConfig, token, caches):
     and returned."""
     pos = caches["pos"]
     h = params["embed"][token.long()[:, None]]
-    for gname, n in _ported_program(cfg):
+    for gname, n in build_program(cfg):
+        if gname == "enc":
+            continue
         gp, cstack = params["groups"][gname], caches[gname]
         if gname == "decoder":
             for i in range(n):
                 h, _ = _decoder_block_decode(_layer(gp, i), cfg, h, _layer(cstack, i), pos)
         elif gname == "mamba":
             h = _mamba_stack_decode(gp, cfg, h, cstack)
-        else:  # zamba_super
+        elif gname == "zamba_super":
             shared = params["shared_attn"]
             for i in range(n):
                 h = _mamba_stack_decode(_layer(gp["mamba"], i), cfg, h,
                                         _layer(cstack["mamba"], i))
                 h, _ = _decoder_block_decode(shared, cfg, h, _layer(cstack["attn"], i), pos)
+        elif gname == "vlm_super":
+            for i in range(n):
+                sp, sc = _layer(gp["self"], i), _layer(cstack["self"], i)
+                for j in range(cfg.cross_attn_every - 1):
+                    h, _ = _decoder_block_decode(_layer(sp, j), cfg, h, _layer(sc, j), pos)
+                xp = _layer(gp["cross"], i)
+                a_out, _ = attn_decode(xp["attn"], cfg, _norm(cfg, h, xp["ln1"]),
+                                       _layer(cstack["cross"], i), pos, cross=True)
+                h = h + torch.tanh(xp["gate"]).to(h.dtype) * a_out
+                h = h + ffn_apply(xp["ffn"], _norm(cfg, h, xp["ln2"]), cfg.ffn_type)
+        else:  # dec
+            for i in range(n):
+                p, c = _layer(gp, i), _layer(cstack, i)
+                a_out, _ = attn_decode(p["self"], cfg, _norm(cfg, h, p["ln1"]), c["self"], pos)
+                h = h + a_out
+                x_out, _ = attn_decode(p["cross"], cfg, _norm(cfg, h, p["ln_x"]), c["cross"],
+                                       pos, cross=True)
+                h = h + x_out
+                h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
     logits = (_norm(cfg, h, params["final_ln"]) @ params["head"])[:, 0]
     caches["pos"] = pos + 1
     return logits, caches

@@ -1,8 +1,8 @@
 """The paper's configuration and serving launcher in the port, on the CPU:
 ``configs.get_config("lnn_fraud")`` equals the reference's ``LNNConfig``
 field for field, its ``SERVICE``/``SERVICE_BATCH`` artifacts serialize to
-the reference's JSON text, ``all_configs`` refuses to return a subset while
-a zoo id is unported, and ``launch.serve.serve_paper`` with the reference's
+the reference's JSON text, ``all_configs`` returns every zoo id with the
+reference's values, and ``launch.serve.serve_paper`` with the reference's
 parameters scores the reference's requests within 1e-5 (f32 on both sides,
 summed in another order) with an equivalence gap within the reference's
 1e-4."""
@@ -47,8 +47,12 @@ def test_lnn_fraud_service_artifacts_equal_reference_json(name):
 
 
 def test_all_configs_refuses_a_subset():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        all_configs()
+    """Every zoo id is ported: ``all_configs()`` returns all ten, each equal
+    field for field to the reference's; an unknown id raises ``KeyError``."""
+    port, ref = all_configs(), RCF.all_configs()
+    assert len(port) == 10 and port.keys() == ref.keys()
+    for aid, cfg in port.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref[aid]), aid
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 

@@ -23,10 +23,11 @@ from repro.models import common as RC
 from repro.models import transformer as RT
 from repro.train.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch import params as P
-from repro_torch.configs import all_configs, get_config
+from repro_torch.configs import CLI_ALIASES, all_configs, get_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import common as TC
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+from repro_torch.models import transformer as TT
 from repro_torch.models.config import ArchConfig
 
 MODEL = dict(atol=1e-4, rtol=1e-4)
@@ -93,10 +94,12 @@ def test_config_equals_reference_and_is_a_decoder(arch):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "seamless-m4t-medium"])
 def test_unported_configs_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        all_configs()
+    """The last two zoo ids, once refused, are now the reference's: the
+    config, its block program, and its entry in ``all_configs()``."""
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_get_config(arch))
+    assert RT.build_program(ref_get_config(arch)) == TT.build_program(cfg)
+    assert dataclasses.asdict(all_configs()[CLI_ALIASES[arch]]) == dataclasses.asdict(cfg)
 
 
 def test_forward_matches_reference(model):

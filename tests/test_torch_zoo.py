@@ -83,8 +83,10 @@ def test_reduced_configs_are_the_reference_programs():
 
 
 def test_other_configs_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("llama-3.2-vision-90b")
+    """The zoo's other ids, once refused, are the reference's now; an
+    unknown id still raises ``KeyError``."""
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
