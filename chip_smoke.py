@@ -124,6 +124,22 @@
    seconds and card memory; and the gateway over a socket against the
    in-process service bit for bit, with its checkpoint route and a
    restoring reboot.
+14. (Run after step 13.)  The zoo's training (``forward_train``, the two
+   backward kernels ``flash_attention_bwd`` and ``ssd_scan_bwd``): each
+   backward kernel against its plain version in ``kernels/ref.py`` at every
+   shape the zoo's forward runs (zamba2's, the decoder group's, the cross
+   shapes, mamba2-370m's N=128, ragged), f32 within GRAD_TOL of the
+   gradient's scale and bf16 within 2e-2 of it, called twice for the same
+   bits, the saving forward's output equal to the no-grad forward's bit for
+   bit; timed beside the bound, the launch floor and sdpa's backward.  Then
+   zamba2-1.2b at full width and depth in bf16 through
+   ``launch.train.train_arch`` (B=4 x 512, 8 steps; the launch counters
+   zeroed just before and read just after: 6 ``flash_attention`` + 6
+   ``flash_attention_bwd`` and 38 ``ssd_scan`` + 38 ``ssd_scan_bwd`` a step;
+   ms a synchronized step, peak memory, finite losses, the card's busy
+   share over a profiled step); then one train step's loss and gradients on
+   the card against the host's plain path in f32 (and f64, the anchor) for
+   the six groups and zamba2 at full width with one superblock.
 13. (Run after step 8.)  Cross attention, the zoo's last two groups:
    seamless-m4t-medium (audio ``enc``/``dec``) at full width and depth in
    bf16 through ``serve()``, its encoder over 512 frames and over the
@@ -144,8 +160,8 @@ the repository:  python3 chip_smoke.py
 steps 1, 6, 7 and 8,
 ``--fraud-kernels`` steps 1 and 2's fraud kernels, ``--train`` steps 1
 and 9, ``--stream`` steps 1 and 4, ``--service`` steps 1 and 5,
-``--procs`` steps 1 and 11, ``--learn`` steps 1 and 12, and ``--cross``
-steps 1, 6 and 13: a
+``--procs`` steps 1 and 11, ``--learn`` steps 1 and 12, ``--cross``
+steps 1, 6 and 13, and ``--zoo-train`` steps 1 and 14: a
 quick build, check and timing, with no result line.  Copied into an older tree, ``--fraud-kernels``
 times that tree's kernels too, for an A/B in one call.)
 """
@@ -204,6 +220,16 @@ STEP_LOSS_RTOL = 1e-5        # one train step, card against the host's plain pat
 STEP_GRAD_TOL = 2e-5         # ... each gradient leaf, of its scale
 TRAIN_EPOCHS = 3             # per GNN type in the Table 3 phase
 TIMED_STEPS = 20             # synchronized train steps timed per GNN type
+# the zoo's training: zamba2-1.2b at full width and depth through the
+# launcher; one step card against host for the six groups (reduced) and
+# zamba2 at full width, one superblock, with the host's f64 as the anchor
+ZOO_TRAIN_STEPS = 8
+ZOO_TRAIN_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "mamba2-370m", "zamba2-1.2b",
+                   "llama-3.2-vision-90b", "seamless-m4t-medium")
+ZOO_STEP_LOSS_RTOL = 1e-5    # one zoo train step, card against host: the loss
+ZOO_STEP_LEAF_TOL = 1e-4     # ... each gradient leaf, of its scale, beyond the host's f32 error
+ZOO_STEP_FULL_SEQ = 128      # zamba2 at full width, one superblock: B=1, two SSD chunks
+QUICK_TIME_MS = 2.0          # calls slower than this are timed over a few plain calls
 STREAM_RATE = 400.0          # checkout events per virtual second
 STREAM_CHECK_EVENTS = 2000   # the stream's first events, replayed by every check
 STREAM_SCORE_TOL = 1e-5      # a replay's scores, card against the host's plain path
@@ -1775,6 +1801,398 @@ def cross_phase(dev) -> dict:
     seconds = time.perf_counter() - t0
     print(f"cross phase: {seconds:.1f} s")
     return dict(rows=rows, f32_agreement_of_scale=agreement, launches=launches, seconds=seconds)
+
+
+def time_call_ms(fn) -> float:
+    """Device time of one call: :func:`time_ms` (CUDA-graph replays), or for
+    a call slower than QUICK_TIME_MS the mean of a few calls between CUDA
+    events (launch overhead is then below the noise)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    one = start.elapsed_time(end)
+    if one < QUICK_TIME_MS:
+        return time_ms(fn)
+    reps = 3 if one > 20 else 5
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def zoo_grad_kernel_checks(dev) -> dict:
+    """The two backward kernels of the zoo's training against their plain
+    versions on the card, at every shape the zoo's forward runs and at
+    ragged ones, f32 and bf16: ``flash_attention_bwd`` (and the saving
+    forward: its output bit for bit the no-grad forward's, its row
+    logsumexp against ``ref.attention_lse_ref``) and ``ssd_scan_bwd``.  Each
+    gradient within GRAD_TOL (f32) or 2e-2 (bf16) of its scale; two calls
+    give the same bits.  bf16 shapes (and f32 at zamba2's) are timed beside
+    the bound, the launch floor and, for attention, sdpa's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention``, its
+    forward's time taken off)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    gen = torch.Generator().manual_seed(3)
+    results: dict = {}
+    failures: list = []
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: tiny.zero_())
+    tol = {"float32": GRAD_TOL["atol"], "bfloat16": TOL["bfloat16"]["atol"]}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    def worst_of_scale(got, want, name, what) -> tuple[float, float]:
+        """max |d| and that over the scale, the worst over the gradients; a
+        case out of tolerance is recorded and the checks go on."""
+        worst = (0.0, 0.0)
+        for g, w, label in zip(got, want, what):
+            if g is None:
+                continue
+            err = float((g.float() - w.float()).abs().max())
+            rel = err / max(float(w.float().abs().max()), 1e-30)
+            if not torch.isfinite(g).all() or rel > tol[name]:
+                failures.append(f"{label}: max|d| {err:.3e}, {rel:.2e} of scale "
+                                f"(limit {tol[name]:g})")
+            worst = max(worst, (rel, err))
+        return worst[1], worst[0]
+
+    def report(kernel, case):
+        results.setdefault(kernel, []).append(case)
+        line = (f"{kernel:<19} {case['shape']:<50} max|d|={case['max_abs_err']:.2e} "
+                f"({case['err_of_scale']:.1e} of scale) same bits {case['same_bits']}")
+        if case.get("ms") is not None:
+            line += (f" kernel {case['ms'] * 1e3:9.2f} us  bound {case['bound_ms'] * 1e3:7.2f} us "
+                     f"({case['bound_by']})  floor {floor_ms * 1e3:4.2f} us")
+        if case.get("plain_ms") is not None:
+            line += f"  plain {case['plain_ms'] * 1e3:9.2f} us"
+        if case.get("library_ms") is not None:
+            line += f"  sdpa bwd {case['library_ms'] * 1e3:9.2f} us"
+        if case.get("design_overhead_ms"):
+            line += (f"  (+{case['design_overhead_ms'] * 1e3:.2f} us moving its scratch at the "
+                     "memory rate)")
+        print(line)
+
+    def flash_case(b, hq, hkv, sq, sk, dh, causal, window, dtype, timed, plain_timed=False):
+        name = str(dtype).split(".")[-1]
+        q, k, v, dout = (randn(b, hq, sq, dh, dtype=dtype), randn(b, hkv, sk, dh, dtype=dtype),
+                         randn(b, hkv, sk, dh, dtype=dtype), randn(b, hq, sq, dh, dtype=dtype))
+        shape = (f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} Dh={dh} "
+                 f"{'causal' if causal else 'full'} w={window} {name}")
+        plain_out = flash_attention_cuda(q, k, v, causal, window)
+        out, lse = flash_attention_cuda(q, k, v, causal, window, save_lse=True)
+        if not torch.equal(out, plain_out):
+            failures.append(f"flash_attention {shape}: the saving forward changed the output")
+        lse_err = float((lse - ref.attention_lse_ref(q, k, causal, window)).abs().max())
+        if not lse_err <= 1e-4:
+            failures.append(f"flash_attention {shape}: row logsumexp off by {lse_err:.2e}")
+        args = (q, k, v, out, dout, lse, causal, window)
+        got = flash_attention_bwd_cuda(*args)
+        same = all(torch.equal(a, c) for a, c in zip(got, flash_attention_bwd_cuda(*args)))
+        if not same:
+            failures.append(f"flash_attention_bwd {shape}: two calls differ")
+        err, rel = worst_of_scale(got, ref.flash_attention_bwd_ref(*args), name,
+                                  [f"flash_attention_bwd {shape} d{x}" for x in "qkv"])
+        case = dict(shape=shape, max_abs_err=err, err_of_scale=rel, tol_of_scale=tol[name],
+                    same_bits=same, forward_bits_kept=torch.equal(out, plain_out),
+                    lse_max_abs_err=lse_err, ms=None, plain_ms=None, bound_ms=None,
+                    bound_by=None, library_ms=None, launch_floor_ms=floor_ms)
+        if timed:
+            qpos = torch.arange(sq)[:, None] + (sk - sq)
+            kpos = torch.arange(sk)[None, :]
+            keep = torch.ones(sq, sk, dtype=torch.bool)
+            if causal:
+                keep &= kpos <= qpos
+            if window is not None:
+                keep &= kpos > qpos - window
+            # S, dP, dV, dK and dQ over the valid pairs; q, k, v, out, dout
+            # and lse read, dq, dk, dv written
+            flops = 10 * dh * b * hq * int(keep.sum())
+            moved = tensor_bytes(q, k, v, out, dout, lse, *got)
+            case["bound_ms"], case["bound_by"] = bound(moved, flops, dtype)
+            case["ms"] = time_call_ms(lambda: flash_attention_bwd_cuda(*args))
+            if plain_timed:
+                case["plain_ms"] = time_call_ms(lambda: ref.flash_attention_bwd_ref(*args))
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            mask = None if window is None and (sq == sk or not causal) else keep.to(dev)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                      is_causal=causal and mask is None,
+                                                      enable_gqa=hq != hkv)
+            # autograd issues the backward on the forward's stream, so the
+            # forward is captured with it, then timed alone and taken off
+            case["library_ms"] = (
+                time_call_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dout))
+                - time_call_ms(sdpa))
+        report("flash_attention_bwd", case)
+
+    def ssd_case(b, s, h, p, n, dtype, timed, plain_timed=False):
+        name = str(dtype).split(".")[-1]
+        x, dy = randn(b, s, h, p, dtype=dtype), randn(b, s, h, p, dtype=dtype)
+        bm, cm = randn(b, s, n, dtype=dtype), randn(b, s, n, dtype=dtype)
+        dt = (torch.rand(b, s, h, generator=gen) * 0.19 + 0.01).to(dev)
+        a = -(torch.rand(h, generator=gen) * 1.5 + 0.5).to(dev)
+        d = randn(h)
+        args = (x, dt, a, bm, cm, d, dy)
+        shape = f"B={b} S={s} H={h} P={p} N={n} {name}"
+        got = ssd_scan_bwd_cuda(*args)
+        same = all(torch.equal(u, w) for u, w in zip(got, ssd_scan_bwd_cuda(*args)))
+        if not same:
+            failures.append(f"ssd_scan_bwd {shape}: two calls differ")
+        err, rel = worst_of_scale(got, ref.ssd_scan_bwd_ref(*args), name,
+                                  [f"ssd_scan_bwd {shape} d{w}" for w in
+                                   ("x", "dt", "a", "b", "c", "d")])
+        case = dict(shape=shape, max_abs_err=err, err_of_scale=rel, tol_of_scale=tol[name],
+                    same_bits=same, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                    library_ms=None, launch_floor_ms=floor_ms)
+        if timed:
+            q, nc = 64, -(-s // 64)
+            # per chunk and head: C·Bᵀ and dY·Xᵀ, the intra-chunk dx, db and
+            # dc (Q x Q x N or P each), and six Q x N x P products (the state
+            # recomputed, C·H, H·dy, R·x, Rᵀ·b, the state's gradient)
+            flops = 2 * b * h * nc * (3 * q * q * n + 2 * q * q * p + 6 * q * n * p)
+            case["bound_ms"], case["bound_by"] = bound(
+                tensor_bytes(*args, *(g for g in got if g is not None)), flops, dtype)
+            # what the design moves beyond that: the recomputed states and the
+            # per-head db and dc, each written once and read once
+            scratch = 4 * b * h * (nc * n * p + 2 * s * n)
+            case["design_overhead_ms"] = 2 * scratch / HBM_BYTES_PER_S * 1e3
+            case["ms"] = time_call_ms(lambda: ssd_scan_bwd_cuda(*args))
+            if plain_timed:
+                case["plain_ms"] = time_call_ms(lambda: ref.ssd_scan_bwd_ref(*args))
+        report("ssd_scan_bwd", case)
+
+    vlm_tv = get_config(VLM_ARCH).num_vision_tokens
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        # zamba2-1.2b's training shapes, then mamba2-370m's N=128
+        ssd_case(ZOO_BATCH, ZOO_SEQ, 64, 64, 64, dtype, timed=True, plain_timed=True)
+        flash_case(ZOO_BATCH, 32, 32, ZOO_SEQ, ZOO_SEQ, 64, True, None, dtype, timed=True,
+                   plain_timed=True)
+        ssd_case(ZOO_BATCH, ZOO_SEQ, 32, 64, 128, dtype, timed=bf)
+        # the decoder group's (granite, olmo, qwen, yi, phi3.5-moe, mixtral)
+        # and mixtral's 4,096 window over 4,608 tokens
+        for hq, hkv, dh in DEC_HEADS:
+            flash_case(ZOO_BATCH, hq, hkv, ZOO_SEQ, ZOO_SEQ, dh, True, None, dtype, timed=bf)
+        flash_case(1, 48, 8, DEC_LONG_SEQ, DEC_LONG_SEQ, 128, True, 4096, dtype, timed=bf)
+        # the cross shapes: llama's self and cross layers, seamless's encoder
+        # (512 and 32 frames), cross over 32 frames and decoder self
+        flash_case(ZOO_BATCH, 64, 8, ZOO_SEQ, ZOO_SEQ, 128, True, None, dtype, timed=bf)
+        flash_case(ZOO_BATCH, 64, 8, ZOO_SEQ, vlm_tv, 128, False, None, dtype, timed=bf)
+        for frames in (AUDIO_FRAMES, LAUNCHER_FRAMES):
+            flash_case(ZOO_BATCH, 16, 16, frames, frames, 64, False, None, dtype, timed=bf)
+        flash_case(ZOO_BATCH, 16, 16, ZOO_SEQ, LAUNCHER_FRAMES, 64, False, None, dtype,
+                   timed=bf)
+        flash_case(ZOO_BATCH, 16, 16, ZOO_SEQ, ZOO_SEQ, 64, True, None, dtype, timed=bf)
+        # ragged: padded last chunks, small N and P (the reduced configs'
+        # 32 x 32), N and P not multiples of 4; q tiles past Sq, key tiles
+        # past Sk, a window across tile edges, q longer than the keys (rows
+        # with no valid key), one query row over the vision tokens
+        ssd_case(2, 200, 4, 64, 64, dtype, timed=False)
+        ssd_case(1, 77, 2, 32, 32, dtype, timed=False)
+        ssd_case(1, 70, 2, 6, 10, dtype, timed=False)
+        flash_case(2, 16, 4, 200, 200, 64, True, 64, dtype, timed=False)
+        flash_case(2, 4, 2, 100, 130, 128, False, None, dtype, timed=False)
+        flash_case(1, 4, 2, 130, 100, 64, True, None, dtype, timed=False)
+        flash_case(1, 8, 2, 130, 100, 128, True, 40, dtype, timed=False)
+        flash_case(2, 4, 4, 17, 17, 64, True, None, dtype, timed=False)
+        flash_case(2, 8, 2, 1, vlm_tv, 64, False, None, dtype, timed=False)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"{len(failures)} zoo backward case(s) out of tolerance:\n"
+                             + "\n".join(failures))
+    return results
+
+
+def _zoo_loss_and_grads(params, cfg, batch) -> tuple[float, list]:
+    """``forward_train``'s loss (f32, no remat) and its gradient with respect
+    to every leaf, on the tensors' device."""
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.params import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = forward_train(tree_unflatten(params, leaves), cfg, batch, use_remat=False)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                  for g, p in zip(grads, leaves)]
+
+
+def zoo_step_agreement(dev) -> dict:
+    """One zoo train step's loss and gradients on the card against the same
+    on the host's plain path, f32, from the same parameters (random from a
+    seed, drawn on the host) and batch (``launch.train.arch_batch``): the
+    six groups' reduced configs at B=2 x 64, and zamba2-1.2b at full width
+    with one superblock (6 Mamba2 blocks and the shared attention) at B=1 x
+    ZOO_STEP_FULL_SEQ; the host's f64 evaluation of the same step is the
+    anchor.  The loss within ZOO_STEP_LOSS_RTOL; each leaf within
+    ZOO_STEP_LEAF_TOL of its scale (max |g| in f64) of the host's f32
+    gradient, beyond that one's own distance from the f64 one (printed
+    beside).  The hybrid's reduced case takes two superblocks of two Mamba2
+    blocks, as tests/test_torch_zoo_train.py does: over the 12 blocks of
+    ``reduced()`` the gradient is so ill-conditioned that scaling the
+    weights by 1 + 1e-7 N(0, 1) moves a leaf 3e-4 of its scale in f32 (on
+    the host; 2e-4 in f64 at 3e-7), more than the limit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import arch_batch
+    from repro_torch.models import init_params
+    from repro_torch.params import flatten_paths, tree_map
+
+    cases = []
+    for arch in ZOO_TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        if arch == ZOO_ARCH:   # two superblocks of two Mamba2 blocks, as the CPU tests
+            cfg = dataclasses.replace(cfg, num_layers=4, attn_every=2)
+        cases.append((f"{arch} reduced", cfg, 2, 64))
+    full = get_config(ZOO_ARCH)
+    cases.append((f"{ZOO_ARCH} full width, one superblock",
+                  dataclasses.replace(full, num_layers=full.attn_every, dtype="float32"), 1,
+                  ZOO_STEP_FULL_SEQ))
+    rows = {}
+    for seed, (label, cfg, b, s) in enumerate(cases):
+        t0 = time.perf_counter()
+        p_cpu = init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+        batch = arch_batch(cfg, b, s, np.random.default_rng(seed), "cpu")
+        _build.reset_launches()
+        loss_card, g_card = _zoo_loss_and_grads(tree_map(lambda t: t.to(dev), p_cpu), cfg,
+                                                {k: v.to(dev) for k, v in batch.items()})
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        g_card = [g.cpu() for g in g_card]
+        loss_host, g_host = _zoo_loss_and_grads(p_cpu, cfg, batch)
+        loss_f64, g_exact = _zoo_loss_and_grads(
+            tree_map(lambda t: t.double(), p_cpu), dataclasses.replace(cfg, dtype="float64"),
+            {k: v.double() if v.is_floating_point() else v for k, v in batch.items()})
+        loss_rel = abs(loss_card - loss_host) / abs(loss_host)
+        worst = (0.0, 0.0, 0.0, 0.0, "")
+        for (path, _), gc, gh, ge in zip(flatten_paths(p_cpu), g_card, g_host, g_exact):
+            scale = max(float(ge.abs().max()), 1e-300)
+            beyond = float(((gc - gh).abs().double() - (gh.double() - ge).abs()).max()) / scale
+            worst = max(worst, (beyond, float((gc.double() - ge).abs().max()) / scale,
+                                float((gh.double() - ge).abs().max()) / scale,
+                                float((gc - gh).abs().max()) / scale, path))
+        del g_card, g_host, g_exact, p_cpu
+        torch.cuda.empty_cache()
+        want = [k for k, runs in (("flash_attention_bwd", cfg.arch_type != "ssm"),
+                                  ("ssd_scan_bwd", cfg.arch_type in ("ssm", "hybrid"))) if runs]
+        missing = [k for k in want if not counts.get(k)]
+        rows[label] = dict(loss_card=loss_card, loss_host=loss_host, loss_f64=loss_f64,
+                           loss_rel=loss_rel, worst_leaf=worst[4], worst_of_scale=worst[0],
+                           card_to_f64=worst[1], host_to_f64=worst[2], card_vs_host=worst[3],
+                           launches=counts, batch=b, seq=s, layers=cfg.num_layers,
+                           d_model=cfg.d_model)
+        print(f"zoo train step {label} (B={b} S={s}, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}): loss card {loss_card:.7f} host {loss_host:.7f} f64 "
+              f"{loss_f64:.7f} ({loss_rel:.1e} rel, limit {ZOO_STEP_LOSS_RTOL:g}); worst leaf "
+              f"{worst[4]}: card vs host f32 {worst[3]:.1e} of scale, {worst[0]:.1e} beyond the "
+              f"host's own f32 error (limit {ZOO_STEP_LEAF_TOL:g}); to f64: card {worst[1]:.1e}, "
+              f"host {worst[2]:.1e}; launches {counts}; {time.perf_counter() - t0:.1f} s")
+        if missing or not loss_rel <= ZOO_STEP_LOSS_RTOL or not worst[0] <= ZOO_STEP_LEAF_TOL:
+            raise AssertionError(f"zoo train step {label}: loss {loss_rel:.2e} relative, leaf "
+                                 f"{worst[4]} {worst[0]:.2e} of scale beyond the host's f32 "
+                                 f"error, kernels never launched {missing}")
+    return rows
+
+
+def zoo_train_phase(dev) -> dict:
+    """The zoo's training on the card: the backward kernels' checks, then
+    zamba2-1.2b at full width and depth in bf16 through
+    ``launch.train.train_arch`` (B=4 x 512, ZOO_TRAIN_STEPS steps, in a
+    temporary working directory, where it writes its checkpoint) with exact
+    launch counts, then one profiled step (the same entry's step builder,
+    fresh weights) and the card-against-host agreement."""
+    import argparse
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.train.optim import adamw
+
+    t0 = time.perf_counter()
+    kernels = zoo_grad_kernel_checks(dev)
+    cfg = get_config(ZOO_ARCH)
+    args = argparse.Namespace(paper=False, gnn="gcn", arch=ZOO_ARCH, reduced=False,
+                              steps=ZOO_TRAIN_STEPS, epochs=1, batch=ZOO_BATCH, seq=ZOO_SEQ,
+                              lr=3e-4, users=600, rings=6, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _build.reset_launches()
+            out = launch_train.train_arch(args)
+            counts = dict(_build.LAUNCHES)
+            ckpt_mb = os.path.getsize(out["checkpoint"]) / 2**20
+        finally:
+            os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_attn = cfg.num_layers // cfg.attn_every
+    expected = dict.fromkeys(counts, 0)
+    expected.update(flash_attention=n_attn * args.steps, flash_attention_bwd=n_attn * args.steps,
+                    ssd_scan=cfg.num_layers * args.steps,
+                    ssd_scan_bwd=cfg.num_layers * args.steps)
+    if counts != expected:
+        raise AssertionError(f"zoo train: launches {counts}, expected {expected}")
+    if not all(np.isfinite(out["loss"] + out["grad_norm"])):
+        raise AssertionError(f"zoo train: losses {out['loss']}, norms {out['grad_norm']}")
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    row = dict(arch=ZOO_ARCH, dtype=cfg.dtype, layers=cfg.num_layers, batch=args.batch,
+               seq=args.seq, steps=args.steps, loss=out["loss"], grad_norm=out["grad_norm"],
+               lr=out["lr"], step_ms=step_ms, median_step_ms=float(np.median(step_ms[1:])),
+               tokens_per_s=args.batch * args.seq / float(np.median(step_ms[1:])) * 1e3,
+               peak_gib=peak, checkpoint_mib=ckpt_mb, launches=counts)
+    print(f"zoo train {ZOO_ARCH} {cfg.dtype} full width and depth ({cfg.num_layers} Mamba2 "
+          f"+ {n_attn} shared attention) B={args.batch} S={args.seq}, {args.steps} steps "
+          f"through launch.train.train_arch: {row['median_step_ms']:.1f} ms a synchronized "
+          f"step (median of steps 2-{args.steps}; the first {step_ms[0]:.1f} ms), "
+          f"{row['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB, losses "
+          + " ".join(f"{v:.4f}" for v in out["loss"])
+          + f", grad norms {out['grad_norm'][0]:.3f}..{out['grad_norm'][-1]:.3f}, checkpoint "
+          f"{ckpt_mb:.0f} MiB, launches {counts}")
+
+    # where a step's time goes: the same step builder on fresh weights
+    params = init_params(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    opt = adamw(args.lr)[0](params)
+    step = make_train_step(cfg, use_remat=False, lr=args.lr)
+    batch = launch_train.arch_batch(cfg, args.batch, args.seq, np.random.default_rng(1), dev)
+    state = {"params": params, "opt": opt}
+
+    def run_step():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
+
+    run_step()
+    wall, busy, top, n = profiled(run_step)
+    row.update(step_profiled_ms=wall * 1e3, step_busy_share=busy, step_top=top,
+               step_kernels=n)
+    del params, opt, state, batch
+    torch.cuda.empty_cache()
+    print(f"zoo train {ZOO_ARCH} card busy: {busy:.1%} of {wall * 1e3:.1f} ms a step "
+          f"({n} kernels) (profiled); top: " + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top))
+    agreement = zoo_step_agreement(dev)
+    seconds = time.perf_counter() - t0
+    print(f"zoo train phase: {seconds:.1f} s")
+    return dict(kernels=kernels, row=row, agreement=agreement, launches=counts,
+                seconds=seconds)
 
 
 def _timed(obj, name: str, log: list) -> None:
@@ -3669,6 +4087,9 @@ def main() -> int:
     if "--learn" in sys.argv[1:]:
         learn_phase(dev)
         return 0
+    if "--zoo-train" in sys.argv[1:]:
+        zoo_train_phase(dev)
+        return 0
 
     # ----------------------------------------------------------------- data
     t0 = time.perf_counter()
@@ -3832,6 +4253,13 @@ def main() -> int:
         launches[name] += c
     print("cross: " + json.dumps(cross))
 
+    # ------------------------------------------------- 14. the zoo's training
+    zoo_train = zoo_train_phase(dev)
+    for name, c in zoo_train["launches"].items():
+        launches[name] += c
+    results.update(zoo_train["kernels"])
+    print("zoo_train: " + json.dumps({k: v for k, v in zoo_train.items() if k != "kernels"}))
+
     # ------------------------------------------------------- 10. kernel line
     def pick(name, shape_prefix, shape_suffix=""):
         return next(c for c in results[name] if c["shape"].startswith(shape_prefix)
@@ -3887,14 +4315,32 @@ def main() -> int:
     chosen["edge_softmax_bwd"] = results["edge_softmax_bwd"][0]
     meta["csr_spmm_bwd"] = meta["csr_spmm"]
     meta["edge_softmax_bwd"] = meta["edge_softmax"]
+    # the zoo's training runs bf16 at zamba2-1.2b's shapes
+    chosen["flash_attention_bwd"] = pick("flash_attention_bwd",
+                                         f"B={ZOO_BATCH} Hq=32 Hkv=32 Sq={ZOO_SEQ} Sk={ZOO_SEQ} "
+                                         "Dh=64 causal w=None bfloat16")
+    chosen["ssd_scan_bwd"] = pick("ssd_scan_bwd",
+                                  f"B={ZOO_BATCH} S={ZOO_SEQ} H=64 P=64 N=64 bfloat16")
+    meta["flash_attention_bwd"] = meta["flash_attention"]
+    meta["ssd_scan_bwd"] = meta["ssd_scan"]
+    grad_notes["flash_attention_bwd"] = (
+        "backward of the forward's kernel, whose saving forward writes each row's logsumexp: "
+        "delta = rowsum(dout * out), then dk/dv (a block per key tile, over the kv head's q "
+        "heads and the q tiles that see it) and dq (a block per q tile), each 64 x 64 tile of "
+        "S and dP recomputed; f32 FMA from shared memory in both dtypes, no atomics" + reference)
+    grad_notes["ssd_scan_bwd"] = (
+        "backward of the chunked scan: a block per (head, sequence) recomputes the state before "
+        "each chunk, then walks the chunks in reverse carrying the state's gradient, a warp "
+        "per row of the chunk; db, dc (per head) and da, dd (per sequence) summed in order by "
+        "a second kernel; f32 FMA in both dtypes, no atomics" + reference)
     kernels = []
     for name, case in chosen.items():
         source, replaces = meta[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=case["max_abs_err"],
-            atol=(GRAD_TOL["atol"] if name.endswith("_bwd") else
-                  TOL["bfloat16" if "bfloat16" in case["shape"] else "float32"]["atol"]),
+            atol=(TOL["bfloat16"]["atol"] if "bfloat16" in case["shape"] else
+                  GRAD_TOL["atol"] if name.endswith("_bwd") else TOL["float32"]["atol"]),
             ms=case["ms"], plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
             bound_by=case["bound_by"], library_ms=case["library_ms"],
             shape=case["shape"], cases=len(results[name]),
@@ -3906,15 +4352,17 @@ def main() -> int:
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "composition_ms")}
     kernels[0]["cases"] += len(results["csr_spmm_etype_mean"])
-    for entry in kernels[-2:]:
-        entry["note"] = grad_notes[entry["name"]]
-        entry["same_bits"] = all(c["same_bits"] for c in results[entry["name"]])
-        entry["launch_floor_ms"] = chosen[entry["name"]]["launch_floor_ms"]
+    by_name = {entry["name"]: entry for entry in kernels}
+    for name in grad_notes:
+        entry = by_name[name]
+        entry["note"] = grad_notes[name]
+        entry["same_bits"] = all(c["same_bits"] for c in results[name])
+        entry["launch_floor_ms"] = chosen[name]["launch_floor_ms"]
         # beside the bound: the time at the memory rate of what the design
         # reads beyond the function's inputs (the forward's saved values)
-        entry["design_overhead_ms"] = chosen[entry["name"]]["design_overhead_ms"]
+        entry["design_overhead_ms"] = chosen[name].get("design_overhead_ms", 0.0)
     per_type = results["csr_spmm_bwd"][1]
-    kernels[-2]["etype_mean"] = {k: per_type[k] for k in (
+    by_name["csr_spmm_bwd"]["etype_mean"] = {k: per_type[k] for k in (
         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # the stream phase: its launches (three full replays) and its own shapes
     case_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3923,10 +4371,10 @@ def main() -> int:
         entry["service_launches"] = service["launches"][entry["name"]]
         entry["procs_launches"] = procs["launches"][entry["name"]]
         entry["learn_launches"] = learn["launches"][entry["name"]]
+        entry["zoo_train_launches"] = zoo_train["launches"][entry["name"]]
         case = stream["kernel_cases"].get(entry["name"])
         if case is not None:
             entry["stream_case"] = {k: case[k] for k in case_keys}
-    by_name = {entry["name"]: entry for entry in kernels}
     by_name["csr_spmm"]["stream_case"]["etype_mean"] = {
         k: stream["kernel_cases"]["csr_spmm_etype_mean"][k] for k in case_keys}
     by_name["stage2_score"]["stream_case"]["same_bits_as_b16"] = \

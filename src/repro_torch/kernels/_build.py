@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: refresh thread), so every update holds ``_LAUNCH_LOCK``
 LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0,
             "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0,
-            "csr_spmm_bwd": 0, "edge_softmax_bwd": 0}
+            "csr_spmm_bwd": 0, "edge_softmax_bwd": 0,
+            "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -128,9 +129,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
+    for name in ("ssd_scan_bwd_f32", "ssd_scan_bwd_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 17 + [i, i, i, i, i, p]
+        fn.restype = i
     for name in ("flash_attention_f32", "flash_attention_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    for name in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 10 + [i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     for name in ("gqa_decode_f32", "gqa_decode_bf16"):
         fn = getattr(lib, name)

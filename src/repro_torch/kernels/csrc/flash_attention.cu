@@ -80,6 +80,15 @@ __device__ __forceinline__ void tile_range(int q0, int Sq, int Sk, int causal, i
   if (window > 0 && qlo - window + 1 > 0) t_begin = (qlo - window + 1) / BK;
 }
 
+// A row's logsumexp in natural-log units from its running max m (natural
+// units, NEG_INF when every key is masked) and sum l: what the forward
+// writes under grad for the backward.  A row with every key masked (causal,
+// q before the first key) weighs its Sk keys alike: log(l) = log(Sk).
+constexpr float LN2 = 0.6931471805599453f;
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == NEG_INF ? logf(l) : m + logf(l);
+}
+
 // ------------------------------------------------------------ f32, CUDA cores
 constexpr int F32_THREADS = 256;
 
@@ -97,8 +106,8 @@ __device__ __forceinline__ float row_sum16(float v) {
 template <int DH>
 __global__ void __launch_bounds__(F32_THREADS) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int Hq, int Hkv, int Sq, int Sk, int causal, int window,
-    float scale) {
+    float* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int window, float scale) {
   constexpr int LDQ = DH + 1, LDP = BK + 1, E = DH / 16;
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][LDQ]
@@ -207,12 +216,15 @@ __global__ void __launch_bounds__(F32_THREADS) flash_attention_f32_kernel(
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int e = 0; e < E; ++e) ob[(size_t)row * DH + tx + 16 * e] = o[r][e] / den;
+    if (lse && tx == 0)
+      lse[((size_t)b * Hq + hq) * Sq + row] = row_lse(m[r], l[r]);
   }
 }
 
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-               int Sq, int Sk, int causal, int window, float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int Hq, int Hkv, int Sq, int Sk, int causal, int window, float scale,
+               void* stream) {
   const size_t smem = sizeof(float) * ((size_t)BQ * (DH + 1) + (size_t)BK * (DH + 1) +
                                        (size_t)BK * DH + (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel<DH>,
@@ -221,8 +233,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_attention_f32_kernel<DH><<<grid, F32_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Hq, Hkv, Sq, Sk, causal,
-      window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Hq, Hkv, Sq, Sk,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -245,8 +257,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
 template <int DH>
 __global__ void __launch_bounds__(MMA_THREADS, DH == 64 ? 4 : 1) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int Hq, int Hkv, int Sq, int Sk, int causal, int window,
-    float scale_log2) {
+    bf16* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int window, float scale_log2) {
   constexpr int LD = DH + 8;      // smem row stride: 16 bytes of pad
   constexpr int KSL = DH / 16;    // 16-wide slices of Dh for Q·Kᵀ
   constexpr int NT = DH / 8;      // 8-wide n-tiles of the output
@@ -403,6 +415,12 @@ __global__ void __launch_bounds__(MMA_THREADS, DH == 64 ? 4 : 1) flash_attention
     l1 += __shfl_xor_sync(0xffffffffu, l1, w);
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  if (lse && lane % 4 == 0) {   // m is in base 2: lse = m ln 2 + ln l
+    float* lb = lse + ((size_t)b * Hq + hq) * Sq;
+    const int r0 = q0 + warp * 16 + g;
+    if (r0 < Sq) lb[r0] = row_lse(m0 == NEG_INF ? m0 : m0 * LN2, l0);
+    if (r0 + 8 < Sq) lb[r0 + 8] = row_lse(m1 == NEG_INF ? m1 : m1 * LN2, l1);
+  }
   // stage the warp's 16 output rows in its own rows of qs, then 16-byte stores
   bf16* st = qs + warp * 16 * LD;
 #pragma unroll
@@ -424,8 +442,9 @@ __global__ void __launch_bounds__(MMA_THREADS, DH == 64 ? 4 : 1) flash_attention
 }
 
 template <int DH>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                int Hkv, int Sq, int Sk, int causal, int window, float scale, void* stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Hq, int Hkv, int Sq, int Sk, int causal, int window, float scale,
+                void* stream) {
   const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * (DH + 8);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -436,40 +455,394 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   const float log2e = 1.4426950408889634f;
   flash_attention_bf16_kernel<DH><<<(unsigned)blocks, MMA_THREADS, smem,
                                     (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Hq, Hkv, Sq, Sk, causal,
-      window, scale * log2e);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, Hq, Hkv, Sq, Sk,
+      causal, window, scale * log2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-           int Sq, int Sk, int Dh, int causal, int window, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Hq,
+           int Hkv, int Sq, int Sk, int Dh, int causal, int window, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   constexpr bool f32 = sizeof(T) == 4;
   if (Dh == 64)
-    return f32 ? launch_f32<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream)
-               : launch_bf16<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, window, scale,
+    return f32 ? launch_f32<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale,
+                                stream)
+               : launch_bf16<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale,
                                  stream);
   if (Dh == 128)
-    return f32 ? launch_f32<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, window, scale,
+    return f32 ? launch_f32<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale,
                                  stream)
-               : launch_bf16<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal, window, scale,
+               : launch_bf16<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale,
                                   stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------ backward
+//
+// Gradients of the attention above with respect to q, k and v, from the
+// forward's output O, the output's gradient dO and each row's logsumexp
+// (written by the forward under grad), in closed form:
+//
+//     P = exp(s - lse),  delta_i = dO_i . O_i,  dS = P (dO Vᵀ - delta),
+//     dq = scale dS K,  dk = scale dSᵀ Q,  dv = Pᵀ dO.
+//
+// There is no TPU kernel to replace: the reference differentiates its XLA
+// path (src/repro/models/transformer.py forward_train, use_pallas=False).
+// Its plain version is kernels/ref.py::flash_attention_bwd_ref.
+//
+// Bound on the H100: at zamba2-1.2b's training shape (B=4 Hq=Hkv=32 S=512
+// Dh=64, bf16, causal) the function reads q, k, v, O, dO and writes dq, dk,
+// dv (~67 MB, ~20 µs) and does five causal products (~10.7 GFLOP, ~11 µs
+// at the bf16 tensor-core peak): bytes bound.  This first design is simple
+// and is bound by neither: every product is f32 FMA on the CUDA cores from
+// shared memory, bf16 converted to f32 as it is staged.
+//
+// Three kernels, no atomics, so two calls give the same bits:
+//   1. delta = rowsum(dO ∘ O), a warp per row.
+//   2. dk, dv: a block per (key tile of 64, kv head, batch) loops over the
+//      kv head's q heads in order and, for each, over the q tiles that see
+//      the key tile (tile_range), recomputing S and dP for the 64 x 64 tile
+//      and summing Pᵀ dO and dSᵀ Q in registers.
+//   3. dq: a block per (q tile of 64, q head, batch) loops over its key
+//      tiles (tile_range) and sums dS K in registers.
+// 256 threads as a 16x16 grid, each holding a 4x4 tile of the 64x64 S and
+// dP and a 4 x Dh/16 tile of its output; shared-memory rows padded to an
+// odd stride.  Masks as the forward's: a masked key has P = dS = 0, a key
+// past Sk counts nothing, and a row with no valid key (causal, q before
+// the first key, whose output is the mean of v) has P = 1 / Sk = exp(-lse)
+// on every key and dS = 0.
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<bf16>(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
+
+// rows [row0, row0 + 64) of a [rows, DH] matrix into f32 smem rows of
+// stride DH + 1; rows past `rows` are zero
+template <int DH, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, int rows) {
+  for (int i = threadIdx.x; i < 64 * DH; i += F32_THREADS) {
+    const int r = i / DH, d = i - r * DH;
+    dst[r * (DH + 1) + d] = row0 + r < rows ? to_f32(src[(size_t)(row0 + r) * DH + d]) : 0.f;
+  }
+}
+
+template <typename T, int DH>
+__global__ void flash_attention_bwd_delta_kernel(const T* __restrict__ out,
+                                                 const T* __restrict__ dout,
+                                                 float* __restrict__ delta, long long rows) {
+  const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  float acc = 0.f;
+  for (int d = lane; d < DH; d += 32)
+    acc += to_f32(out[row * DH + d]) * to_f32(dout[row * DH + d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// One 64 x 64 tile of P and dS (this thread's 4 x 4: q rows ty + 16 r, keys
+// tx + 16 c) from the staged q, dO (rows of the q tile), k and v (rows of
+// the key tile), and the q rows' lse and delta.
+template <int DH>
+__device__ __forceinline__ void tile_p_ds(const float* qs, const float* dos, const float* ks,
+                                          const float* vs, const float* lse_s,
+                                          const float* delta_s, int q0, int k0, int Sq,
+                                          int Sk, int causal, int window, float scale,
+                                          float p[4][4], float ds[4][4]) {
+  constexpr int LD = DH + 1;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      qv[r] = qs[(ty + 16 * r) * LD + d];
+      ov[r] = dos[(ty + 16 * r) * LD + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kv[c] = ks[(tx + 16 * c) * LD + d];
+      vv[c] = vs[(tx + 16 * c) * LD + d];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
+        dp[r][c] = fmaf(ov[r], vv[c], dp[r][c]);
+      }
+  }
+  const int off = Sk - Sq;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = ty + 16 * r, qpos = q0 + qi + off;
+    const bool dead = causal && qpos < 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kpos = k0 + tx + 16 * c;
+      bool ok = kpos < Sk;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      if (ok) {
+        p[r][c] = expf(s[r][c] * scale - lse_s[qi]);
+        ds[r][c] = p[r][c] * (dp[r][c] - delta_s[qi]);
+      } else {
+        p[r][c] = dead && kpos < Sk ? expf(-lse_s[qi]) : 0.f;
+        ds[r][c] = 0.f;
+      }
+    }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(F32_THREADS) flash_attention_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk, int causal,
+    int window, float scale) {
+  constexpr int LD = DH + 1, LDP = BK + 1, E = DH / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;              // [BK][LD]
+  float* vs = ks + BK * LD;      // [BK][LD]
+  float* qs = vs + BK * LD;      // [BQ][LD]
+  float* dos = qs + BQ * LD;     // [BQ][LD]
+  float* ps = dos + BQ * LD;     // [BQ][LDP]
+  float* dss = ps + BQ * LDP;    // [BQ][LDP]
+  float* lse_s = dss + BQ * LDP; // [BQ]
+  float* delta_s = lse_s + BQ;   // [BQ]
+
+  const int t = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, rep = Hq / Hkv;
+  const int k0 = t * BK, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  stage_rows<DH>(ks, k + ((size_t)b * Hkv + hk) * Sk * DH, k0, Sk);
+  stage_rows<DH>(vs, v + ((size_t)b * Hkv + hk) * Sk * DH, k0, Sk);
+
+  float dka[4][E] = {}, dva[4][E] = {};
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  for (int r_h = 0; r_h < rep; ++r_h) {
+    const int hq = hk * rep + r_h;
+    const size_t bh = (size_t)b * Hq + hq;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * BQ;
+      int t_begin, t_end;
+      tile_range(q0, Sq, Sk, causal, window, t_begin, t_end);
+      if (t < t_begin || t >= t_end) continue;
+      __syncthreads();   // the previous q tile's readers are done
+      stage_rows<DH>(qs, q + bh * Sq * DH, q0, Sq);
+      stage_rows<DH>(dos, dout + bh * Sq * DH, q0, Sq);
+      for (int i = threadIdx.x; i < BQ; i += F32_THREADS) {
+        lse_s[i] = q0 + i < Sq ? lse[bh * Sq + q0 + i] : 0.f;
+        delta_s[i] = q0 + i < Sq ? delta[bh * Sq + q0 + i] : 0.f;
+      }
+      __syncthreads();
+      float p[4][4], ds[4][4];
+      tile_p_ds<DH>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, Sq, Sk, causal, window, scale, p,
+                    ds);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool row_in = q0 + ty + 16 * r < Sq;   // rows past Sq count nothing
+          ps[(ty + 16 * r) * LDP + tx + 16 * c] = row_in ? p[r][c] : 0.f;
+          dss[(ty + 16 * r) * LDP + tx + 16 * c] = row_in ? ds[r][c] : 0.f;
+        }
+      __syncthreads();
+      // this thread's keys ty + 16 r, columns tx + 16 e: sums over the tile's q rows
+#pragma unroll 4
+      for (int i = 0; i < BQ; ++i) {
+        float pv[4], dsv[4], ov[E], qv[E];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pv[r] = ps[i * LDP + ty + 16 * r];
+          dsv[r] = dss[i * LDP + ty + 16 * r];
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          ov[e] = dos[i * LD + tx + 16 * e];
+          qv[e] = qs[i * LD + tx + 16 * e];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            dva[r][e] = fmaf(pv[r], ov[e], dva[r][e]);
+            dka[r][e] = fmaf(dsv[r], qv[e], dka[r][e]);
+          }
+      }
+    }
+  }
+  const size_t base = ((size_t)b * Hkv + hk) * Sk * DH;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = k0 + ty + 16 * r;
+    if (row >= Sk) continue;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      dk[base + (size_t)row * DH + tx + 16 * e] = from_f32<T>(dka[r][e] * scale);
+      dv[base + (size_t)row * DH + tx + 16 * e] = from_f32<T>(dva[r][e]);
+    }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(F32_THREADS) flash_attention_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int causal, int window, float scale) {
+  constexpr int LD = DH + 1, LDP = BK + 1, E = DH / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;              // [BQ][LD]
+  float* dos = qs + BQ * LD;     // [BQ][LD]
+  float* ks = dos + BQ * LD;     // [BK][LD]
+  float* vs = ks + BK * LD;      // [BK][LD]
+  float* dss = vs + BK * LD;     // [BQ][LDP]
+  float* lse_s = dss + BQ * LDP; // [BQ]
+  float* delta_s = lse_s + BQ;   // [BQ]
+
+  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (Hq / Hkv), tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t bh = (size_t)b * Hq + hq;
+  stage_rows<DH>(qs, q + bh * Sq * DH, q0, Sq);
+  stage_rows<DH>(dos, dout + bh * Sq * DH, q0, Sq);
+  for (int i = threadIdx.x; i < BQ; i += F32_THREADS) {
+    lse_s[i] = q0 + i < Sq ? lse[bh * Sq + q0 + i] : 0.f;
+    delta_s[i] = q0 + i < Sq ? delta[bh * Sq + q0 + i] : 0.f;
+  }
+  int t_begin, t_end;
+  tile_range(q0, Sq, Sk, causal, window, t_begin, t_end);
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * DH;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * DH;
+
+  float dqa[4][E] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();   // the previous tile's readers are done (and q is staged)
+    stage_rows<DH>(ks, kb, k0, Sk);
+    stage_rows<DH>(vs, vb, k0, Sk);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    tile_p_ds<DH>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, Sq, Sk, causal, window, scale, p,
+                  ds);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dss[(ty + 16 * r) * LDP + tx + 16 * c] = ds[r][c];
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float dsv[4], kv[E];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dsv[r] = dss[(ty + 16 * r) * LDP + j];
+#pragma unroll
+      for (int e = 0; e < E; ++e) kv[e] = ks[j * LD + tx + 16 * e];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < E; ++e) dqa[r][e] = fmaf(dsv[r], kv[e], dqa[r][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty + 16 * r;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      dq[bh * Sq * DH + (size_t)row * DH + tx + 16 * e] = from_f32<T>(dqa[r][e] * scale);
+  }
+}
+
+template <typename T, int DH>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+               int Hkv, int Sq, int Sk, int causal, int window, float scale, void* stream) {
+  constexpr int LD = DH + 1, LDP = BK + 1;
+  const size_t smem_kv = sizeof(float) * (4 * (size_t)BK * LD + 2 * (size_t)BQ * LDP + 2 * BQ);
+  const size_t smem_q = sizeof(float) * (4 * (size_t)BK * LD + (size_t)BQ * LDP + 2 * BQ);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = (long long)B * Hq * Sq;
+  flash_attention_bwd_delta_kernel<T, DH><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      (const T*)out, (const T*)dout, delta, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dkdv_kernel<T, DH>
+      <<<dim3((Sk + BK - 1) / BK, Hkv, B), F32_THREADS, smem_kv, st>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv,
+          Hq, Hkv, Sq, Sk, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dq_kernel<T, DH>
+      <<<dim3((Sq + BQ - 1) / BQ, Hq, B), F32_THREADS, smem_q, st>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, Hq, Hkv,
+          Sq, Sk, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_dh(const void* q, const void* k, const void* v, const void* out,
+                  const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                  void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int Dh, int causal,
+                  int window, float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || Hkv > 65535 ||
+      Hq > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (Dh == 64)
+    return launch_bwd<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
+                             causal, window, scale, stream);
+  if (Dh == 128)
+    return launch_bwd<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
+                              causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   int B, int Hq, int Hkv, int Sq, int Sk, int Dh,
+                                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int Dh,
                                    int causal, int window, float scale, void* stream) {
-  return launch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, Dh, causal, window, scale, stream);
+  return launch<float>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, Dh, causal, window, scale,
+                       stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int B, int Hq, int Hkv, int Sq, int Sk, int Dh,
+                                    float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int Dh,
                                     int causal, int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, Dh, causal, window, scale,
-                               stream);
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, Dh, causal, window,
+                               scale, stream);
+}
+
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                       const void* out, const void* dout, const float* lse,
+                                       float* delta, void* dq, void* dk, void* dv, int B,
+                                       int Hq, int Hkv, int Sq, int Sk, int Dh, int causal,
+                                       int window, float scale, void* stream) {
+  return launch_bwd_dh<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
+                              Dh, causal, window, scale, stream);
+}
+
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                        const void* out, const void* dout, const float* lse,
+                                        float* delta, void* dq, void* dk, void* dv, int B,
+                                        int Hq, int Hkv, int Sq, int Sk, int Dh, int causal,
+                                        int window, float scale, void* stream) {
+  return launch_bwd_dh<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
+                                      Sq, Sk, Dh, causal, window, scale, stream);
 }

@@ -70,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "cp_async.cuh"
 #include "mma_bf16.cuh"
 
@@ -657,4 +659,383 @@ extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
   if (N == 64) return launch_bf16<64>(x, dt, a, b, c, d_skip, y, B, S, H, P, stream);
   if (N == 128) return launch_bf16<128>(x, dt, a, b, c, d_skip, y, B, S, H, P, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------ backward
+//
+// Gradients of the chunked scan with respect to x, dt, a, b, c and d_skip,
+// in closed form (kernels/ref.py::ssd_scan_bwd_ref, its plain version).
+// With cum the within-chunk prefix sum of dt·a, T its last entry,
+// L_ij = exp(clip(cum_i - cum_j, -60, 0)) for j <= i, G = C·Bᵀ and
+// w_j = exp(clip(T - cum_j)) dt_j, one chunk is
+//
+//     y_i = Σ_j G_ij L_ij dt_j x_j + exp(clip(cum_i)) c_i·H + D x_i,
+//     H'  = exp(clip(T)) H + Σ_j w_j b_j ⊗ x_j,
+//
+// and every exp(clip(v)) passes a gradient only where v >= -60, as
+// jax.grad of the reference's clip does.  There is no TPU kernel to
+// replace: the reference differentiates its XLA path (ssd_chunked_ref under
+// forward_train, use_pallas=False).
+//
+// Bound on the H100: at zamba2-1.2b's training shape (B=4 S=512 H=64 P=64
+// N=64, bf16) the function reads x, dy, b, c, dt and writes their
+// gradients (~52 MB, ~16 µs).  This first design is simple and bound by
+// neither bytes nor the tensor cores: every product is f32 FMA from shared
+// memory, bf16 converted to f32 as it is staged.
+//
+// One block per (head, sequence), 256 threads (8 warps):
+//   1. forward over the chunks, carrying the [N, P] f32 state in shared
+//      memory and writing the state before each chunk to scratch (the
+//      forward kernel saves nothing);
+//   2. the chunks in reverse, carrying the state's gradient R in shared
+//      memory: per chunk G, dM = dY·Xᵀ and L (64 x 64, lower), then a warp
+//      per row for its dx, db, dc, ddt and d(cum) (lanes over P, N or the
+//      chunk, reduced by shuffles), then the prefix sum's reverse for dt and
+//      a, then R <- exp(clip(T)) R + Σ_i exp(clip(cum_i)) c_i ⊗ dy_i.
+// db and dc (b and c are shared by the heads) are written per head, da and
+// dd per sequence, and a second kernel sums them over heads and sequences
+// in order.  No atomics: two calls give the same bits.  Rows of shared
+// memory are padded to an odd stride, so the lanes of a warp fall in
+// distinct banks.  A ragged last chunk has no-op rows (dt = 0, x = b = c =
+// dy = 0), whose gradients are not written.  Any N and P whose buffers fit
+// a block's 227 KB (kernels/ssd_scan.py::bwd_smem_bytes).
+
+namespace {
+
+constexpr int BWD_THREADS = 256;
+
+template <typename T>
+__device__ __forceinline__ float ld_f32(const T* p);
+template <>
+__device__ __forceinline__ float ld_f32<float>(const float* p) { return *p; }
+template <>
+__device__ __forceinline__ float ld_f32<bf16>(const bf16* p) { return __bfloat162float(*p); }
+template <typename T>
+__device__ __forceinline__ T st_val(float v);
+template <>
+__device__ __forceinline__ float st_val<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 st_val<bf16>(float v) { return __float2bfloat16(v); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// the block's sum of one value a thread, in a fixed order (warps, then in
+// warp order by thread 0); every thread gets it
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < BWD_THREADS / 32; ++w) s += red[w];
+  return s;
+}
+
+// rows [t0, t0 + Q) of a [.., W] slice (row stride `stride`) into smem rows
+// of stride W + 1; rows at or past S are zero
+template <typename T>
+__device__ __forceinline__ void stage_chunk(float* dst, const T* src, size_t stride, int W,
+                                            int t0, int S) {
+  for (int i = threadIdx.x; i < Q * W; i += BWD_THREADS) {
+    const int r = i / W, c = i - r * W;
+    dst[r * (W + 1) + c] = t0 + r < S ? ld_f32(src + (size_t)(t0 + r) * stride + c) : 0.f;
+  }
+}
+
+// the chunk's prefix sums of dt·a (one thread, in order)
+__device__ __forceinline__ void prefix_cum(const float* dt_s, float* cum_s, float ah) {
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int j = 0; j < Q; ++j) {
+      acc += dt_s[j] * ah;
+      cum_s[j] = acc;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS) ssd_scan_bwd_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const T* __restrict__ b, const T* __restrict__ c, const float* __restrict__ d_skip,
+    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ ddt,
+    float* __restrict__ states, float* __restrict__ db_part, float* __restrict__ dc_part,
+    float* __restrict__ sums, int B, int S, int H, int P, int N) {
+  const int h = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int LP = P + 1, LN = N + 1, LQ = Q + 1, nc = (S + Q - 1) / Q;
+  extern __shared__ float sm[];
+  float* xs = sm;                 // [Q][LP]
+  float* dys = xs + Q * LP;       // [Q][LP]
+  float* bs = dys + Q * LP;       // [Q][LN]
+  float* cs = bs + Q * LN;        // [Q][LN]
+  float* hs = cs + Q * LN;        // [N][LP] the state before the chunk
+  float* rs = hs + N * LP;        // [N][LP] the gradient of the state after it
+  float* gs = rs + N * LP;        // [Q][LQ] C·Bᵀ, lower
+  float* dms = gs + Q * LQ;       // [Q][LQ] dY·Xᵀ (over P), lower
+  float* ls = dms + Q * LQ;       // [Q][LQ] L, lower
+  float* dt_s = ls + Q * LQ;      // [Q]
+  float* cum_s = dt_s + Q;        // [Q]
+  float* w_s = cum_s + Q;         // [Q] w_j = exp(clip(T - cum_j)) dt_j
+  float* e_s = w_s + Q;           // [Q] exp(clip(cum_i))
+  float* dcum_s = e_s + Q;        // [Q] the gradient of cum
+  float* ddt_s = dcum_s + Q;      // [Q] the gradient of dt
+  float* dgap_s = ddt_s + Q;      // [Q] the gradient of T - cum_j through w_j
+  float* red = dgap_s + Q;        // [Q] block sums
+
+  const float ah = a[h], dh = d_skip ? d_skip[h] : 0.f;
+  const size_t xrow = (size_t)H * P;                       // a step of x, dy, dx
+  const T* xb = x + (size_t)bb * S * xrow + (size_t)h * P;
+  const T* dyb = dy + (size_t)bb * S * xrow + (size_t)h * P;
+  T* dxb = dx + (size_t)bb * S * xrow + (size_t)h * P;
+  const T* bb_ = b + (size_t)bb * S * N;
+  const T* cb = c + (size_t)bb * S * N;
+  const float* dtb = dt + (size_t)bb * S * H + h;
+  float* st = states + ((size_t)bb * H + h) * nc * N * P;
+  float* dbp = db_part + ((size_t)bb * H + h) * S * N;
+  float* dcp = dc_part + ((size_t)bb * H + h) * S * N;
+  const int NP = N * P;
+
+  // ---- 1. forward over the chunks: the state before each chunk, to scratch
+  for (int e = tid; e < NP; e += BWD_THREADS) hs[(e / P) * LP + e % P] = 0.f;
+  for (int k = 0; k < nc; ++k) {
+    const int t0 = k * Q;
+    __syncthreads();
+    for (int e = tid; e < NP; e += BWD_THREADS) st[(size_t)k * NP + e] = hs[(e / P) * LP + e % P];
+    stage_chunk(xs, xb, xrow, P, t0, S);
+    stage_chunk(bs, bb_, N, N, t0, S);
+    for (int j = tid; j < Q; j += BWD_THREADS) dt_s[j] = t0 + j < S ? dtb[(size_t)(t0 + j) * H] : 0.f;
+    __syncthreads();
+    prefix_cum(dt_s, cum_s, ah);
+    __syncthreads();
+    const float total = cum_s[Q - 1];
+    for (int j = tid; j < Q; j += BWD_THREADS) w_s[j] = clip_exp(total - cum_s[j]) * dt_s[j];
+    __syncthreads();
+    const float et = clip_exp(total);
+    for (int e = tid; e < NP; e += BWD_THREADS) {
+      const int n = e / P, p = e - n * P;
+      float acc = 0.f;
+      for (int j = 0; j < Q; ++j) acc = fmaf(w_s[j] * bs[j * LN + n], xs[j * LP + p], acc);
+      hs[n * LP + p] = hs[n * LP + p] * et + acc;
+    }
+  }
+
+  // ---- 2. the chunks in reverse
+  for (int e = tid; e < NP; e += BWD_THREADS) rs[(e / P) * LP + e % P] = 0.f;
+  float da_acc = 0.f, dd_acc = 0.f;
+  for (int k = nc - 1; k >= 0; --k) {
+    const int t0 = k * Q;
+    __syncthreads();
+    stage_chunk(xs, xb, xrow, P, t0, S);
+    stage_chunk(dys, dyb, xrow, P, t0, S);
+    stage_chunk(bs, bb_, N, N, t0, S);
+    stage_chunk(cs, cb, N, N, t0, S);
+    for (int e = tid; e < NP; e += BWD_THREADS) hs[(e / P) * LP + e % P] = st[(size_t)k * NP + e];
+    for (int j = tid; j < Q; j += BWD_THREADS) dt_s[j] = t0 + j < S ? dtb[(size_t)(t0 + j) * H] : 0.f;
+    __syncthreads();
+    prefix_cum(dt_s, cum_s, ah);
+    __syncthreads();
+    const float total = cum_s[Q - 1], et = clip_exp(total);
+    for (int j = tid; j < Q; j += BWD_THREADS) {
+      w_s[j] = clip_exp(total - cum_s[j]) * dt_s[j];
+      e_s[j] = clip_exp(cum_s[j]);
+    }
+    // G = C·Bᵀ, dM = dY·Xᵀ and L on and below the diagonal
+    for (int idx = tid; idx < Q * Q; idx += BWD_THREADS) {
+      const int i = idx / Q, j = idx - i * Q;
+      float g = 0.f, m = 0.f, l = 0.f;
+      if (j <= i) {
+        for (int n = 0; n < N; ++n) g = fmaf(cs[i * LN + n], bs[j * LN + n], g);
+        for (int p = 0; p < P; ++p) m = fmaf(dys[i * LP + p], xs[j * LP + p], m);
+        l = clip_exp(cum_s[i] - cum_s[j]);
+      }
+      gs[i * LQ + j] = g;
+      dms[i * LQ + j] = m;
+      ls[i * LQ + j] = l;
+    }
+    // <H, R>, for the gradient of T through exp(clip(T)) H
+    float hr = 0.f;
+    for (int e = tid; e < NP; e += BWD_THREADS) {
+      const int n = e / P, p = e - n * P;
+      hr = fmaf(hs[n * LP + p], rs[n * LP + p], hr);
+    }
+    hr = block_sum(hr, red);   // also the barrier after G, dM, L, w and e
+
+    // a warp per row r of the chunk
+    for (int r = warp; r < Q; r += BWD_THREADS / 32) {
+      const int t = t0 + r;
+      const float er = e_s[r], wr = w_s[r], dtr = dt_s[r];
+      // (a) y_r's inter-chunk term: d(cum_r) += e_r [cum_r >= -60] (c_r·H)·dy_r
+      float v = 0.f;
+      for (int p = lane; p < P; p += 32) {
+        float ch = 0.f;
+        for (int n = 0; n < N; ++n) ch = fmaf(cs[r * LN + n], hs[n * LP + p], ch);
+        v = fmaf(ch, dys[r * LP + p], v);
+      }
+      const float d_inter = cum_s[r] >= -60.f ? er * warp_sum(v) : 0.f;
+      // (b) dc_r = e_r H dy_r + Σ_{j<=r} dG_rj b_j, dG_rj = dM_rj L_rj dt_j
+      // (c) db_r = w_r R x_r + Σ_{i>=r} dG_ir c_i, and dsw_r = b_r·(R x_r)
+      float dsw = 0.f;
+      for (int n = lane; n < N; n += 32) {
+        float hd = 0.f, rx = 0.f, gb = 0.f, gc = 0.f;
+        for (int p = 0; p < P; ++p) {
+          hd = fmaf(hs[n * LP + p], dys[r * LP + p], hd);
+          rx = fmaf(rs[n * LP + p], xs[r * LP + p], rx);
+        }
+        for (int j = 0; j <= r; ++j)
+          gb = fmaf(dms[r * LQ + j] * ls[r * LQ + j] * dt_s[j], bs[j * LN + n], gb);
+        for (int i = r; i < Q; ++i)
+          gc = fmaf(dms[i * LQ + r] * ls[i * LQ + r], cs[i * LN + n], gc);
+        dsw = fmaf(bs[r * LN + n], rx, dsw);
+        if (t < S) {
+          dcp[(size_t)t * N + n] = er * hd + gb;
+          dbp[(size_t)t * N + n] = wr * rx + dtr * gc;
+        }
+      }
+      dsw = warp_sum(dsw);
+      // (d) dx_r = w_r Rᵀ b_r + dt_r Σ_{i>=r} G_ir L_ir dy_i + D dy_r
+      for (int p = lane; p < P; p += 32) {
+        float rb = 0.f, gy = 0.f;
+        for (int n = 0; n < N; ++n) rb = fmaf(rs[n * LP + p], bs[r * LN + n], rb);
+        for (int i = r; i < Q; ++i)
+          gy = fmaf(gs[i * LQ + r] * ls[i * LQ + r], dys[i * LP + p], gy);
+        const float dyr = dys[r * LP + p];
+        dd_acc = fmaf(dyr, xs[r * LP + p], dd_acc);
+        if (t < S) dxb[(size_t)t * xrow + p] = st_val<T>(wr * rb + dtr * gy + dh * dyr);
+      }
+      // (e) ddt_r (before the prefix sum's part) and d(cum_r): the
+      // intra-chunk terms dl_ij = dM_ij G_ij dt_j L_ij [cum_i - cum_j >= -60]
+      // below the diagonal (on it the two terms cancel)
+      float dw = 0.f, dl_row = 0.f, dl_col = 0.f;
+      for (int i = lane; i < Q; i += 32) {
+        if (i >= r) {
+          const float wgt = gs[i * LQ + r] * ls[i * LQ + r];
+          dw = fmaf(dms[i * LQ + r], wgt, dw);
+          if (i > r && cum_s[i] - cum_s[r] >= -60.f) dl_col = fmaf(dms[i * LQ + r] * dtr, wgt, dl_col);
+        } else if (cum_s[r] - cum_s[i] >= -60.f) {   // i plays j < r
+          dl_row = fmaf(dms[r * LQ + i] * gs[r * LQ + i] * dt_s[i], ls[r * LQ + i], dl_row);
+        }
+      }
+      dw = warp_sum(dw);
+      dl_row = warp_sum(dl_row);
+      dl_col = warp_sum(dl_col);
+      if (lane == 0) {
+        const float gap = total - cum_s[r];
+        const float dgap = gap >= -60.f ? wr * dsw : 0.f;
+        dgap_s[r] = dgap;
+        ddt_s[r] = clip_exp(gap) * dsw + dw;
+        dcum_s[r] = d_inter + dl_row - dl_col - dgap;
+      }
+    }
+    __syncthreads();
+    // T = cum_{Q-1}; then the reverse of the prefix sum, for dt and a
+    if (tid == 0) {
+      float dtotal = total >= -60.f ? et * hr : 0.f;
+      for (int j = 0; j < Q; ++j) dtotal += dgap_s[j];
+      dcum_s[Q - 1] += dtotal;
+      float suf = 0.f;
+      for (int j = Q - 1; j >= 0; --j) {
+        suf += dcum_s[j];
+        ddt_s[j] = fmaf(suf, ah, ddt_s[j]);
+        da_acc = fmaf(suf, dt_s[j], da_acc);
+      }
+    }
+    __syncthreads();
+    for (int j = tid; j < Q; j += BWD_THREADS)
+      if (t0 + j < S) ddt[((size_t)bb * S + t0 + j) * H + h] = ddt_s[j];
+    // R <- exp(clip(T)) R + Σ_i e_i c_i ⊗ dy_i: the gradient of this chunk's H
+    for (int e = tid; e < NP; e += BWD_THREADS) {
+      const int n = e / P, p = e - n * P;
+      float acc = 0.f;
+      for (int i = 0; i < Q; ++i) acc = fmaf(e_s[i] * cs[i * LN + n], dys[i * LP + p], acc);
+      rs[n * LP + p] = rs[n * LP + p] * et + acc;
+    }
+  }
+  dd_acc = block_sum(dd_acc, red);
+  if (tid == 0) {
+    sums[(size_t)bb * H + h] = da_acc;
+    sums[((size_t)B + bb) * H + h] = dd_acc;
+  }
+}
+
+// db and dc summed over the heads, da and dd over the sequences, in order
+template <typename T>
+__global__ void ssd_scan_bwd_reduce_kernel(const float* __restrict__ db_part,
+                                           const float* __restrict__ dc_part,
+                                           const float* __restrict__ sums, T* __restrict__ db,
+                                           T* __restrict__ dc, float* __restrict__ da,
+                                           float* __restrict__ dd, int B, int S, int H, int N) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long per_seq = (long long)S * N;
+  if (idx < B * per_seq) {
+    const long long bb = idx / per_seq, rest = idx - bb * per_seq;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < H; ++h) {
+      const size_t o = ((size_t)bb * H + h) * per_seq + rest;
+      sb += db_part[o];
+      sc += dc_part[o];
+    }
+    db[idx] = st_val<T>(sb);
+    dc[idx] = st_val<T>(sc);
+  }
+  if (idx < H) {
+    float sa = 0.f, sd = 0.f;
+    for (int bb = 0; bb < B; ++bb) {
+      sa += sums[(size_t)bb * H + idx];
+      sd += sums[((size_t)B + bb) * H + idx];
+    }
+    da[idx] = sa;
+    if (dd) dd[idx] = sd;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dt, const void* a, const void* b, const void* c,
+               const void* d_skip, const void* dy, void* dx, void* ddt, void* da, void* db,
+               void* dc, void* dd, void* states, void* db_part, void* dc_part, void* sums, int B,
+               int S, int H, int P, int N, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * (size_t)Q * (P + 1) + 2 * (size_t)Q * (N + 1) +
+                                       2 * (size_t)N * (P + 1) + 3 * (size_t)Q * (Q + 1) +
+                                       8 * (size_t)Q);
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  ssd_scan_bwd_kernel<T><<<dim3(H, B), BWD_THREADS, smem, st>>>(
+      (const T*)x, (const float*)dt, (const float*)a, (const T*)b, (const T*)c,
+      (const float*)d_skip, (const T*)dy, (T*)dx, (float*)ddt, (float*)states,
+      (float*)db_part, (float*)dc_part, (float*)sums, B, S, H, P, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = std::max((long long)B * S * N, (long long)H);
+  ssd_scan_bwd_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      (const float*)db_part, (const float*)dc_part, (const float*)sums, (T*)db, (T*)dc,
+      (float*)da, (float*)dd, B, S, H, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ssd_scan_bwd_f32(const void* x, const void* dt, const void* a, const void* b,
+                                const void* c, const void* d_skip, const void* dy, void* dx,
+                                void* ddt, void* da, void* db, void* dc, void* dd, void* states,
+                                void* db_part, void* dc_part, void* sums, int B, int S, int H,
+                                int P, int N, void* stream) {
+  return launch_bwd<float>(x, dt, a, b, c, d_skip, dy, dx, ddt, da, db, dc, dd, states, db_part,
+                           dc_part, sums, B, S, H, P, N, stream);
+}
+
+extern "C" int ssd_scan_bwd_bf16(const void* x, const void* dt, const void* a, const void* b,
+                                 const void* c, const void* d_skip, const void* dy, void* dx,
+                                 void* ddt, void* da, void* db, void* dc, void* dd,
+                                 void* states, void* db_part, void* dc_part, void* sums, int B,
+                                 int S, int H, int P, int N, void* stream) {
+  return launch_bwd<bf16>(x, dt, a, b, c, d_skip, dy, dx, ddt, da, db, dc, dd, states, db_part,
+                          dc_part, sums, B, S, H, P, N, stream);
 }

@@ -16,7 +16,13 @@ missing ``rev`` is built from the slots; on the card it must be given.  A
 CPU call that also wants a gradient for the graph's weights or mask takes
 ordinary autograd of the plain version, whose gather adds with atomics
 above one intra-op thread (not bit-reproducible); the card refuses one.
-The other four kernels have no backward: on the card they raise
+The two zoo kernels of training, ``flash_attention`` and ``ssd_scan``,
+take their ``torch.autograd.Function``s (``flash_attention.FlashAttention``,
+``ssd_scan.SsdScan``) on either device when a gradient is wanted: forward
+as without grad (the kernel also saving the attention's row logsumexp),
+backward a kernel on the card and the closed forms of ``kernels.ref`` on
+the CPU, each in a fixed order.  ``gqa_decode`` (decode only) and
+``stage2_score`` (serving) have no backward: on the card they raise
 (:func:`refuse_grad`) rather than return a tensor that autograd cannot
 differentiate.
 """
@@ -29,12 +35,12 @@ from repro_torch.kernels.csr_spmm import (csr_spmm_autograd, csr_spmm_cuda,
                                           csr_spmm_etype_mean_autograd,
                                           csr_spmm_etype_mean_cuda)
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_autograd, edge_softmax_agg_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import SsdScan, ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.stage2_score import (flatten_stage2_params, pack_stage2_params,
                                               stage2_score_cuda, unpack_stage2_pack)
-from repro_torch.models.common import blockwise_attention
 from repro_torch.params import tree_leaves
 
 
@@ -135,12 +141,14 @@ def stage2_score(params, gnn_type, entity_emb, emb_mask, order_feats,
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     """Prefill attention.  q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh]; q rows
     aligned to the end of the keys.  The plain version is the reference's
-    XLA path (``blockwise_attention`` over key blocks of min(512, Sk))."""
-    if _on_cuda(q):
-        refuse_grad("flash_attention", q, k, v)
+    XLA path (``blockwise_attention`` over key blocks of min(512, Sk)).
+    Under grad: ``FlashAttention`` (the backward kernel on the card)."""
+    cuda = _on_cuda(q)
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, cuda)
+    if cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
-    return blockwise_attention(q, k, v, causal=causal, window=window,
-                               block_k=min(512, k.shape[2]))
+    return flash_attention_plain(q, k, v, causal, window)
 
 
 def gqa_decode(q, k, v, kv_len=None, window: int | None = None):
@@ -162,14 +170,11 @@ def ssd_scan(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     ``use_pallas=False``): the chunked form at ``chunk`` where it divides S
     (a whole sequence shorter than 64 is one chunk), else the sequential
     recurrence; ``compute_dtype`` is the chunked form's intra-chunk dtype.
+    Under grad: ``SsdScan`` (the backward kernel on the card).
     """
-    if _on_cuda(x):
-        refuse_grad("ssd_scan", x, dt, a, b, c, d_skip)
+    cuda = _on_cuda(x)
+    if _wants_grad(*(t for t in (x, dt, a, b, c, d_skip) if t is not None)):
+        return SsdScan.apply(x, dt, a, b, c, d_skip, chunk, compute_dtype, cuda)
+    if cuda:
         return ssd_scan_cuda(x, dt, a, b, c, d_skip)
-    s = x.shape[1]
-    if s % chunk:
-        chunk = s if s < 64 else 1
-    if chunk > 1:
-        return ref.ssd_chunked_ref(x, dt, a, b, c, d_skip, chunk=chunk,
-                                   compute_dtype=compute_dtype)
-    return ref.ssd_scan_ref(x, dt, a, b, c, d_skip)
+    return ssd_scan_plain(x, dt, a, b, c, d_skip, chunk, compute_dtype)

@@ -361,6 +361,89 @@ def gqa_decode_split_ref(q, k, v, kv_len=None, window=None, chunk: int = 64):
     return out.reshape(b, hq, dh).to(q.dtype)
 
 
+def _attn_masks(sq: int, sk: int, causal: bool, window, device):
+    """The mask of the prefill attention kernel, q rows aligned to the end of
+    the keys: ``valid`` [Sq, Sk], whether key j counts for q row i, and
+    ``dead`` [Sq], the rows with no valid key (causal, Sq > Sk: the q rows
+    before the first key), whose output is the mean of v over the Sk keys."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        valid &= kpos <= qpos
+    if window is not None:
+        valid &= kpos > qpos - window
+    return valid, ~valid.any(-1)
+
+
+def _attn_logits(qg, kg, valid, dead, scale):
+    """Scaled f32 logits of one kv head's q heads ``qg`` [B, R, Sq, Dh]
+    against its keys ``kg`` [B, Sk, Dh]: -inf where masked, 0 on a dead
+    row (its keys weigh alike)."""
+    s = torch.einsum("brqd,bkd->brqk", qg, kg) * scale
+    fill = torch.where(dead[:, None], 0.0, float("-inf")).to(s.dtype)
+    return torch.where(valid, s, fill)
+
+
+def attention_lse_ref(q, k, causal=True, window=None):
+    """Each q row's logsumexp over its scaled logits, [B, Hq, Sq] f32 in
+    natural-log units (f64 for f64 inputs): what the flash_attention forward kernel writes under
+    grad, for its backward.  A dead row (no valid key, :func:`_attn_masks`)
+    gets log(Sk), so that exp(0 - lse) is its uniform weight 1 / Sk."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    valid, dead = _attn_masks(sq, sk, causal, window, q.device)
+    acc = _acc_dtype(q.dtype)
+    out = torch.empty((b, hq, sq), dtype=acc, device=q.device)
+    for g in range(hkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        s = _attn_logits(q[:, hs].to(acc), k[:, g].to(acc), valid, dead, dh ** -0.5)
+        out[:, hs] = torch.logsumexp(s, -1)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
+    """Gradients of the prefill attention (``kernels.ops.flash_attention``)
+    with respect to q, k and v, in closed form from the forward's output
+    ``out`` and row logsumexp ``lse`` (:func:`attention_lse_ref`), in f32
+    (f64 for f64 inputs):
+
+        p = exp(s - lse),  delta_i = dout_i . out_i,
+        ds = p * (dout v^T - delta),
+        dq = scale ds k,  dk = scale ds^T q,  dv = p^T dout,
+
+    with s the scaled logits.  Masked entries have p = ds = 0; a dead row
+    has p = 1 / Sk on every key and ds = 0 (its logits are constants).  dk
+    and dv sum over a kv head's q heads in head order.  Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = dh ** -0.5
+    valid, dead = _attn_masks(sq, sk, causal, window, q.device)
+    acc = _acc_dtype(q.dtype)
+    delta = (dout.to(acc) * out.to(acc)).sum(-1)                     # [B, Hq, Sq]
+    dq = torch.empty(q.shape, dtype=acc, device=q.device)
+    dk = torch.empty(k.shape, dtype=acc, device=q.device)
+    dv = torch.empty(v.shape, dtype=acc, device=q.device)
+    for g in range(hkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        qg, kg, vg = q[:, hs].to(acc), k[:, g].to(acc), v[:, g].to(acc)
+        dog = dout[:, hs].to(acc)
+        p = torch.exp(_attn_logits(qg, kg, valid, dead, scale) - lse[:, hs, :, None])
+        dp = torch.einsum("brqd,bkd->brqk", dog, vg)
+        ds = torch.where(valid, p * (dp - delta[:, hs, :, None]), torch.zeros_like(p))
+        dq[:, hs] = torch.einsum("brqk,bkd->brqd", ds, kg) * scale
+        dkg = dvg = 0.0
+        for r in range(rep):          # the kv head's q heads in order
+            dkg = dkg + torch.einsum("bqk,bqd->bkd", ds[:, r], qg[:, r])
+            dvg = dvg + torch.einsum("bqk,bqd->bkd", p[:, r], dog[:, r])
+        dk[:, g] = dkg * scale
+        dv[:, g] = dvg
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality) scan
 # ---------------------------------------------------------------------------
@@ -375,8 +458,9 @@ def ssd_scan_ref(x, dt, a, b, c, d_skip=None):
     """
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    x32, dt32, b32, c32 = x.float(), dt.float(), b.float(), c.float()
-    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    acc = _acc_dtype(x.dtype)
+    x32, dt32, b32, c32 = x.to(acc), dt.to(acc), b.to(acc), c.to(acc)
+    state = torch.zeros((bsz, h, n, p), dtype=acc, device=x.device)
     ys = []
     for t in range(s):
         decay = torch.exp(dt32[:, t] * a[None, :])                    # [B, H]
@@ -395,16 +479,18 @@ def ssd_chunked_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     plain tensor ops: the reference's XLA path op for op.
 
     ``compute_dtype`` is the dtype of the big intra-chunk tensors (the
-    [Q, Q, H] decay and weight blocks); state math stays f32.
+    [Q, Q, H] decay and weight blocks); state math stays f32 (f64, and the
+    compute dtype too, for f64 inputs).
     """
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     nc = s // chunk
-    cd = compute_dtype
+    acc = _acc_dtype(x.dtype)
+    cd = compute_dtype if acc == torch.float32 else acc
     xc = x.reshape(bsz, nc, chunk, h, p).to(cd)
-    dtc = dt.reshape(bsz, nc, chunk, h).float()
+    dtc = dt.reshape(bsz, nc, chunk, h).to(acc)
     bc = b.reshape(bsz, nc, chunk, n).to(cd)
     cc = c.reshape(bsz, nc, chunk, n).to(cd)
 
@@ -413,21 +499,21 @@ def ssd_chunked_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     total = cum[:, :, -1]                                            # [B,nc,H]
 
     # intra-chunk: y[t] = sum_{u<=t} c_t·b_u exp(cum[t]-cum[u]) dt_u x_u
-    scores = torch.einsum("bkin,bkjn->bkij", cc.float(), bc.float())  # [B,nc,Q,Q]
+    scores = torch.einsum("bkin,bkjn->bkij", cc.to(acc), bc.to(acc))  # [B,nc,Q,Q]
     decay = torch.exp(torch.clamp(cum[:, :, :, None, :] - cum[:, :, None, :, :],
                                   -60.0, 0.0)).to(cd)                # [B,nc,Q,Q,H]
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     w = scores.to(cd)[..., None] * decay * causal[None, None, :, :, None]
-    wd = w.float() * dtc.to(cd).float()[:, :, None, :, :]
-    y_intra = torch.einsum("bkijh,bkjhp->bkihp", wd, xc.float())
+    wd = w.to(acc) * dtc.to(cd).to(acc)[:, :, None, :, :]
+    y_intra = torch.einsum("bkijh,bkjhp->bkihp", wd, xc.to(acc))
 
     # chunk states: S_k = sum_u exp(total - cum[u]) dt_u (b_u ⊗ x_u)
     dec_state = torch.exp(torch.clamp(total[:, :, None] - cum, -60.0, 0.0))
-    xw = xc.float() * (dec_state * dtc)[..., None]
-    s_chunk = torch.einsum("bkjn,bkjhp->bkhnp", bc.float(), xw)
+    xw = xc.to(acc) * (dec_state * dtc)[..., None]
+    s_chunk = torch.einsum("bkjn,bkjhp->bkhnp", bc.to(acc), xw)
 
     # inter-chunk scan: the state before each chunk, carried with exp(total)
-    carry = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    carry = torch.zeros((bsz, h, n, p), dtype=acc, device=x.device)
     prev = []
     for k in range(nc):
         prev.append(carry)
@@ -436,11 +522,11 @@ def ssd_chunked_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     prev_states = torch.stack(prev, dim=1)                           # [B,nc,H,N,P]
 
     # inter-chunk contribution: y[t] = exp(cum[t]) c_t · S_prev
-    y_inter = torch.einsum("bkin,bkhnp->bkihp", cc.float(), prev_states) \
+    y_inter = torch.einsum("bkin,bkhnp->bkihp", cc.to(acc), prev_states) \
         * torch.exp(torch.clamp(cum, -60.0, 0.0))[..., None]
     y = (y_intra + y_inter).reshape(bsz, s, h, p)
     if d_skip is not None:
-        y = y + x.float() * d_skip[None, None, :, None]
+        y = y + x.to(acc) * d_skip[None, None, :, None]
     return y.to(x.dtype)
 
 
@@ -500,3 +586,122 @@ def ssd_scan_mma_ref(x, dt, a, b, c, d_skip=None, chunk: int = 64):
     if d_skip is not None:
         y = y + xc * d_skip[None, None, None, :, None]
     return y.reshape(bsz, nc * chunk, h, p)[:, :s].to(x.dtype)
+
+
+def ssd_scan_bwd_ref(x, dt, a, b, c, d_skip, dy, chunk: int = 64):
+    """Gradients of the chunked SSD scan (:func:`ssd_chunked_ref`) with
+    respect to x, dt, a, b, c and d_skip, in closed form, in f32.
+
+    The forward saves nothing: the state before each chunk is recomputed,
+    then the state's gradient R is carried in reverse across the chunks.
+    With cum the within-chunk prefix sum of dt·a, T its last entry,
+    L_ij = exp(clip(cum_i - cum_j, -60, 0)) for j <= i, G = C Bᵀ and
+    w_j = exp(clip(T - cum_j, -60, 0)) dt_j, one chunk is
+
+        y_i = Σ_j G_ij L_ij dt_j x_j + exp(clip(cum_i)) c_i · H + D x_i,
+        H' = exp(clip(T)) H + Σ_j w_j b_j ⊗ x_j,
+
+    and each exp(clip(v)) passes a gradient only where the clip is not
+    active (v >= -60), as ``jax.grad`` of the reference's ``jnp.clip``
+    does.  (The clip's upper end is reached only on a difference of one
+    value with itself, whose two gradients cancel: they are left out.)
+    S need not be a multiple of ``chunk``: the last chunk is padded with
+    no-op rows (dt = 0, x = b = c = 0), as the kernel pads it.  b and c are
+    shared by the H heads, so db and dc sum over them; da and dd sum over B
+    and S.  In f32 (f64 for f64 inputs).  Returns (dx, ddt, da, db, dc, dd)
+    in the dtypes of the inputs (dd None without ``d_skip``)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    q = chunk
+    f32 = _acc_dtype(x.dtype)
+
+    def chunks(t, *tail):
+        return F.pad(t.to(f32), (0, 0) * len(tail) + (0, pad)).reshape(bsz, nc, q, *tail)
+
+    xc, dyc = chunks(x, h, p), chunks(dy, h, p)
+    bc, cc = chunks(b, n), chunks(c, n)
+    dtc = F.pad(dt.to(f32), (0, 0, 0, pad)).reshape(bsz, nc, q, h)
+    af = a.to(f32)
+
+    cum = torch.cumsum(dtc * af, dim=2)                               # [B,nc,Q,H]
+    total = cum[:, :, -1]                                             # [B,nc,H]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # [B,nc,Qi,Qj,H]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    lower = tri[None, None, :, :, None]
+    strict = (~torch.eye(q, dtype=torch.bool, device=x.device))[None, None, :, :, None]
+    ell = torch.where(lower, torch.exp(diff.clamp(-60.0, 0.0)), torch.zeros_like(diff))
+    act_ell = lower & strict & (diff >= -60.0)
+    g = torch.einsum("bkin,bkjn->bkij", cc, bc)                       # [B,nc,Qi,Qj]
+    gap = total[:, :, None] - cum
+    e_w = torch.exp(gap.clamp(-60.0, 0.0))                            # [B,nc,Q,H]
+    w = e_w * dtc
+    e_t = torch.exp(total.clamp(-60.0, 0.0))                          # [B,nc,H]
+    e_in = torch.exp(cum.clamp(-60.0, 0.0))                           # [B,nc,Q,H]
+
+    # the state before each chunk, recomputed as the forward carries it
+    s_chunk = torch.einsum("bkjn,bkjhp->bkhnp", bc, xc * w[..., None])
+    carry = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+    states = []
+    for k in range(nc):
+        states.append(carry)
+        carry = carry * e_t[:, k, :, None, None] + s_chunk[:, k]
+    states = torch.stack(states, 1)                                   # [B,nc,H,N,P]
+
+    # the inter-chunk term y_i += e_i c_i · H
+    dye = dyc * e_in[..., None]
+    ch = torch.einsum("bkin,bkhnp->bkihp", cc, states)
+    dcum = torch.where(cum >= -60.0, e_in * (ch * dyc).sum(-1), torch.zeros_like(cum))
+    dc = torch.einsum("bkhnp,bkihp->bkin", states, dye)
+    dh_inter = torch.einsum("bkin,bkihp->bkhnp", cc, dye)
+
+    # the state's gradient, carried in reverse: dS_k = R, the gradient of H_{k+1}
+    r = torch.zeros_like(carry)
+    d_state, d_total = [None] * nc, [None] * nc
+    for k in reversed(range(nc)):
+        d_state[k] = r
+        d_total[k] = torch.where(total[:, k] >= -60.0,
+                                 e_t[:, k] * (states[:, k] * r).sum((-1, -2)),
+                                 torch.zeros_like(total[:, k]))
+        r = dh_inter[:, k] + e_t[:, k, :, None, None] * r
+    d_state = torch.stack(d_state, 1)                                 # [B,nc,H,N,P]
+    d_total = torch.stack(d_total, 1)                                 # [B,nc,H]
+
+    # the chunk's state update Σ_j w_j b_j ⊗ x_j
+    rx = torch.einsum("bkhnp,bkjhp->bkjhn", d_state, xc)               # [B,nc,Q,H,N]
+    db = torch.einsum("bkjhn,bkjh->bkjn", rx, w)
+    dx = torch.einsum("bkhnp,bkjn->bkjhp", d_state, bc) * w[..., None]
+    dsw = torch.einsum("bkjhn,bkjn->bkjh", rx, bc)                     # dL / dw_j
+    ddt = e_w * dsw
+    d_gap = torch.where(gap >= -60.0, w * dsw, torch.zeros_like(gap))
+    d_total = d_total + d_gap.sum(2)
+    dcum = dcum - d_gap
+
+    # the intra-chunk term y_i += Σ_j G_ij L_ij dt_j x_j
+    dm = torch.einsum("bkihp,bkjhp->bkijh", dyc, xc)                  # [B,nc,Qi,Qj,H]
+    wgt = g[..., None] * ell                                          # G_ij L_ij
+    dx = dx + torch.einsum("bkijh,bkihp->bkjhp", wgt * dtc[:, :, None], dyc)
+    dg = (dm * ell * dtc[:, :, None]).sum(-1)                         # over the heads
+    dc = dc + torch.einsum("bkij,bkjn->bkin", dg, bc)
+    db = db + torch.einsum("bkij,bkin->bkjn", dg, cc)
+    ddt = ddt + (dm * wgt).sum(2)
+    dl = torch.where(act_ell, dm * wgt * dtc[:, :, None], torch.zeros_like(dm))
+    dcum = dcum + dl.sum(3) - dl.sum(2)
+
+    dd = None
+    if d_skip is not None:
+        dx = dx + dyc * d_skip.to(f32)[:, None]
+        dd = (dyc * xc).sum((0, 1, 2, 4))
+
+    # cum_i = Σ_{u<=i} dt_u a, and T = cum_{Q-1}
+    dcum[:, :, -1] += d_total
+    suffix = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = ddt + suffix * af
+    da = (suffix * dtc).sum((0, 1, 2))
+
+    def unchunk(t, like):
+        return t.reshape(bsz, nc * q, *t.shape[3:])[:, :s].to(like.dtype)
+
+    return (unchunk(dx, x), unchunk(ddt, dt), da.to(a.dtype), unchunk(db, b), unchunk(dc, c),
+            None if dd is None else dd.to(d_skip.dtype))

@@ -38,22 +38,29 @@ def dense_init(gen: torch.Generator, shape, dtype, scale=None, device=None):
     return (w * scale).to(dtype=dtype, device=device)
 
 
+def wide(x):
+    """``x`` in the type the plain path computes in: f32, or f64 for an f64
+    tensor (an f64 evaluation of a model is the anchor that f32 rounding is
+    measured against)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale=None, eps=1e-6):
-    x32 = x.float()
+    x32 = wide(x)
     y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
     if scale is not None:
-        y = y * (1.0 + scale.float())
+        y = y * (1.0 + scale.to(x32.dtype))
     return y.to(x.dtype)
 
 
 def layernorm_nonparametric(x, eps=1e-5):
     """OLMo's non-parametric LayerNorm: no learnable scale or bias, the
     statistics in f32 (the population variance, as ``jnp.var``)."""
-    x32 = x.float()
+    x32 = wide(x)
     mu = x32.mean(-1, keepdim=True)
     var = x32.var(-1, keepdim=True, correction=0)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -73,7 +80,7 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     freqs = rope_freqs(x.shape[-1], theta, x.device)               # [Dh/2]
     angles = positions[..., None].float() * freqs                   # [..., S, Dh/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = wide(x).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
@@ -96,10 +103,10 @@ def ffn_init(gen, d_model, d_ff, ffn_type, dtype, device=None):
 
 def ffn_apply(params, x, ffn_type):
     if ffn_type == "swiglu":
-        g = F.silu((x @ params["w_gate"]).float()).to(x.dtype)
+        g = F.silu(wide(x @ params["w_gate"])).to(x.dtype)
         return (g * (x @ params["w_up"])) @ params["w_down"]
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu((x @ params["w_up"]).float(), approximate="tanh").to(x.dtype)
+    h = F.gelu(wide(x @ params["w_up"]), approximate="tanh").to(x.dtype)
     return h @ params["w_down"]
 
 
@@ -133,14 +140,15 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_k=512,
         v = F.pad(v, (0, 0, 0, pad))
         sk += pad
     dev = q.device
-    qg = q.reshape(b, hkv, rep, sq, dh).float()
+    qg = wide(q.reshape(b, hkv, rep, sq, dh))
+    acc_t = qg.dtype
     qpos = q_offset + torch.arange(sq, device=dev)
 
-    m = torch.full((b, hkv, rep, sq), NEG_INF, dtype=torch.float32, device=dev)
-    denom = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, rep, sq, dh), dtype=torch.float32, device=dev)
+    m = torch.full((b, hkv, rep, sq), NEG_INF, dtype=acc_t, device=dev)
+    denom = torch.zeros((b, hkv, rep, sq), dtype=acc_t, device=dev)
+    acc = torch.zeros((b, hkv, rep, sq, dh), dtype=acc_t, device=dev)
     for j in range(sk // block_k):
-        kj = k[:, :, j * block_k:(j + 1) * block_k].float()
+        kj = wide(k[:, :, j * block_k:(j + 1) * block_k])
         vj = v[:, :, j * block_k:(j + 1) * block_k]
         logits = torch.einsum("bgrsd,bgkd->bgrsk", qg, kj) * scale
         kpos = j * block_k + torch.arange(block_k, device=dev)
@@ -155,7 +163,27 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_k=512,
         alpha = torch.exp(m - m_new)
         denom = denom * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bgrsk,bgkd->bgrsd", p.to(vj.dtype).float(), vj.float())
+            "bgrsk,bgkd->bgrsd", wide(p.to(vj.dtype)), wide(vj))
         m = m_new
     out = acc / denom.clamp_min(1e-30)[..., None]
     return out.reshape(b, hq, sq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits: [..., V] (any float dtype); labels: [...] int.  The mean of
+    logsumexp(logits) - logits[label] in f32, over the ``mask`` (a masked
+    mean divided by max(mask sum, 1)) where given.
+
+    The gold logit is a plain gather: the reference's iota-compare exists
+    for its vocabulary-sharded GSPMD layout, which one card does not have."""
+    logits = wide(logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

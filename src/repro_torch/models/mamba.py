@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, rmsnorm, torch_dtype
+from repro_torch.models.common import dense_init, rmsnorm, torch_dtype, wide
 
 
 def mamba_init(gen: torch.Generator, cfg, device=None):
@@ -57,7 +57,7 @@ def _causal_conv(params, conv_in, conv_state=None):
     y = xp[:, 0:s] * params["conv_w"][0][None, None, :]
     for i in range(1, k):
         y = y + xp[:, i:i + s] * params["conv_w"][i][None, None, :]
-    y = F.silu((y + params["conv_b"]).float()).to(conv_in.dtype)
+    y = F.silu(wide(y + params["conv_b"])).to(conv_in.dtype)
     return y, xp[:, -(k - 1):]
 
 
@@ -67,13 +67,13 @@ def _ssm_inputs(params, cfg, conv_out, dt):
     xs = conv_out[..., :di].unflatten(-1, (h, p))
     bmat = conv_out[..., di:di + n]
     cmat = conv_out[..., di + n:]
-    dt = F.softplus(dt.float() + params["dt_bias"])
+    dt = F.softplus(wide(dt) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
     return xs, bmat, cmat, dt, a
 
 
 def _gate_out(params, y, z):
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), params["norm_scale"])
+    y = rmsnorm(y * F.silu(wide(z)).to(y.dtype), params["norm_scale"])
     return y @ params["w_out"]
 
 

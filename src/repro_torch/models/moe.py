@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, torch_dtype
+from repro_torch.models.common import dense_init, torch_dtype, wide
 from repro_torch.utils.padding import ceil_div
 
 
@@ -49,7 +49,7 @@ def moe_route(params, x, k: int):
     """Router probabilities [T, E] (f32) and the top ``k``: gates [T, k]
     renormalised over the chosen experts, and their indices [T, k], ties
     toward the lower index."""
-    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    probs = torch.softmax(wide(x) @ params["router"], dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = top[:, :k], idx[:, :k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -99,7 +99,7 @@ def moe_apply(params, cfg, x, full_capacity: bool = False):
     x_pad = torch.cat([x, x.new_zeros((1, d))])
     z = x_pad[inv].reshape(e, cap, d)
 
-    g = F.silu(torch.bmm(z, params["w_gate"]).float()).to(z.dtype)
+    g = F.silu(wide(torch.bmm(z, params["w_gate"]))).to(z.dtype)
     u = torch.bmm(z, params["w_up"])
     y_ec = torch.bmm(g * u, params["w_down"])                        # [E, C, d]
 

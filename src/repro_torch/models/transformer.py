@@ -27,17 +27,22 @@ attention over the encoder's output and an FFN.  The cross layers' decode
 caches hold the static K/V of the vision tokens or the encoder's output.
 There is no ``use_pallas``: the tensors' device picks the kernel path.
 
-Entry points: ``init_params``, ``forward``, ``prefill`` (logits + cache),
-``init_cache``, ``decode_step`` (one token).  ``forward_train`` waits for
-the training slice.  The decode caches are updated in place.
+Entry points: ``init_params``, ``forward``, ``forward_train`` (the
+causal LM loss, for ``torch.autograd``), ``prefill`` (logits + cache),
+``init_cache``, ``decode_step`` (one token).  The decode caches are updated
+in place.  ``use_remat`` recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of its
+scan bodies): it changes memory, not values.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (dense_init, ffn_apply, ffn_init,
-                                      layernorm_nonparametric, rmsnorm, torch_dtype)
+                                      layernorm_nonparametric, rmsnorm, softmax_cross_entropy,
+                                      torch_dtype)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init
 from repro_torch.models.moe import moe_apply, moe_init
@@ -88,6 +93,16 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def _body(use_remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``use_remat`` through
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept but recomputed in the backward, which the kernels repeat bit for
+    bit.  The reference wraps each scan body in ``jax.checkpoint``."""
+    if use_remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -227,19 +242,25 @@ def _dec_block(p, cfg, h, memory, *, want_cache):
     return h, cache
 
 
-def _mamba_stack(gp, cfg, h, want_cache):
+def _mamba_block(p, cfg, h, want_cache):
+    y, st = mamba_apply(p, cfg, rmsnorm(h), return_state=want_cache)
+    return h + y, st
+
+
+def _mamba_stack(gp, cfg, h, want_cache, use_remat=False):
     states = []
     for i in range(gp["w_in"].shape[0]):
-        y, st = mamba_apply(_layer(gp, i), cfg, rmsnorm(h), return_state=want_cache)
-        h = h + y
+        h, st = _body(use_remat, _mamba_block, _layer(gp, i), cfg, h, want_cache)
         states.append(st)
     return h, (_stack(states) if want_cache else None)
 
 
-def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blockwise"):
+def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blockwise",
+                use_remat=False):
     """Run the block program over the groups ``params`` holds (the audio
     forward passes only ``dec``).  Returns (h, caches, aux summed over the
-    decoder layers, f32)."""
+    decoder layers, f32).  ``use_remat``: each layer (a superblock's Mamba2
+    blocks and shared attention each) through :func:`_body`."""
     caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for gname, n in build_program(cfg):
@@ -249,21 +270,21 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
         if gname == "decoder":
             outs = []
             for i in range(n):
-                h, cache, aux = _decoder_block(_layer(gp, i), cfg, h, want_cache=want_cache,
-                                               attn_impl=attn_impl)
+                h, cache, aux = _body(use_remat, _decoder_block, _layer(gp, i), cfg, h,
+                                      want_cache=want_cache, attn_impl=attn_impl)
                 if aux is not None:
                     aux_total = aux_total + aux
                 outs.append(cache)
             caches[gname] = _stack(outs) if want_cache else None
         elif gname == "mamba":
-            h, caches[gname] = _mamba_stack(gp, cfg, h, want_cache)
+            h, caches[gname] = _mamba_stack(gp, cfg, h, want_cache, use_remat)
         elif gname == "zamba_super":
             shared = params["shared_attn"]
             outs = []
             for i in range(n):
-                h, mstates = _mamba_stack(_layer(gp["mamba"], i), cfg, h, want_cache)
-                h, acache, _ = _decoder_block(shared, cfg, h, want_cache=want_cache,
-                                              attn_impl=attn_impl)
+                h, mstates = _mamba_stack(_layer(gp["mamba"], i), cfg, h, want_cache, use_remat)
+                h, acache, _ = _body(use_remat, _decoder_block, shared, cfg, h,
+                                     want_cache=want_cache, attn_impl=attn_impl)
                 outs.append({"mamba": mstates, "attn": acache})
             caches[gname] = _stack(outs) if want_cache else None
         elif gname == "vlm_super":
@@ -271,57 +292,82 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
             for i in range(n):
                 sp, scaches = _layer(gp["self"], i), []
                 for j in range(cfg.cross_attn_every - 1):
-                    h, cache, _ = _decoder_block(_layer(sp, j), cfg, h, want_cache=want_cache,
-                                                 attn_impl=attn_impl)
+                    h, cache, _ = _body(use_remat, _decoder_block, _layer(sp, j), cfg, h,
+                                        want_cache=want_cache, attn_impl=attn_impl)
                     scaches.append(cache)
-                h, xcache = _cross_block(_layer(gp["cross"], i), cfg, h, extra["vision"],
-                                         want_cache=want_cache)
+                h, xcache = _body(use_remat, _cross_block, _layer(gp["cross"], i), cfg, h,
+                                  extra["vision"], want_cache=want_cache)
                 outs.append({"self": _stack(scaches) if want_cache else None, "cross": xcache})
             caches[gname] = _stack(outs) if want_cache else None
         elif gname == "dec":
             outs = []
             for i in range(n):
-                h, cache = _dec_block(_layer(gp, i), cfg, h, extra["memory"],
-                                      want_cache=want_cache)
+                h, cache = _body(use_remat, _dec_block, _layer(gp, i), cfg, h, extra["memory"],
+                                 want_cache=want_cache)
                 outs.append(cache)
             caches[gname] = _stack(outs) if want_cache else None
     return h, (caches if want_cache else {}), aux_total
 
 
-def _encode(params, cfg, frames):
+def _encode(params, cfg, frames, use_remat=False):
     """The audio encoder over the frame embeddings [B, Sf, d] (the frontend
     is a stub, as in the reference): decoder layers with non-causal self
     attention (RoPE applied); no cache."""
     h = frames.to(torch_dtype(cfg.dtype))
     gp = params["groups"]["enc"]
     for i in range(gp["ln1"].shape[0]):
-        h, _, _ = _decoder_block(_layer(gp, i), cfg, h, want_cache=False, causal=False)
+        h, _, _ = _body(use_remat, _decoder_block, _layer(gp, i), cfg, h, want_cache=False,
+                        causal=False)
     return h
 
 
 def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
-            attn_impl: str = "blockwise"):
+            attn_impl: str = "blockwise", use_remat: bool = False):
     """tokens: [B, S] int; ``extra``: ``{"vision": [B, Tv, d]}`` for a vlm
     config, ``{"frames": [B, Sf, d]}`` for an audio one.  Returns (logits
     [B, S, Vphys], caches, aux); aux is the MoE balance loss summed over
     the decoder layers (f32, 0 without MoE).  The audio model's caches also
     hold the encoder's output (``enc_memory``).  ``attn_impl``:
     ``"blockwise"`` or ``"banded"`` (one function on the port; see
-    ``models.attention.attn_apply``)."""
+    ``models.attention.attn_apply``).  ``use_remat``: recompute each layer
+    in the backward (:func:`_body`)."""
     extra = extra or {}
     h = params["embed"][tokens.long()]
     if cfg.arch_type == "audio":
-        memory = _encode(params, cfg, extra["frames"])
+        memory = _encode(params, cfg, extra["frames"], use_remat)
         dec_params = {"groups": {"dec": params["groups"]["dec"]}}
         h, caches, aux = _run_groups(dec_params, cfg, h, dict(extra, memory=memory),
-                                     want_cache=want_cache, attn_impl=attn_impl)
+                                     want_cache=want_cache, attn_impl=attn_impl,
+                                     use_remat=use_remat)
         if want_cache:
             caches["enc_memory"] = memory
     else:
         h, caches, aux = _run_groups(params, cfg, h, extra, want_cache=want_cache,
-                                     attn_impl=attn_impl)
+                                     attn_impl=attn_impl, use_remat=use_remat)
     logits = _norm(cfg, h, params["final_ln"]) @ params["head"]
     return logits, caches, aux
+
+
+def forward_train(params, cfg: ArchConfig, batch, *, use_remat: bool = True,
+                  attn_impl: str = "blockwise", aux_weight: float = 0.01):
+    """The causal LM loss, f32 scalar.  ``batch``: ``{"tokens", "labels",
+    [extras]}`` ([B, S] int each, labels -1 where masked; a vlm's
+    ``vision``, an audio model's ``frames``).  The vocabulary's padding
+    columns get -1e30 before the softmax; the loss is
+    :func:`~repro_torch.models.common.softmax_cross_entropy` of the labels
+    (clamped at 0) under the mask ``labels >= 0``, plus ``aux_weight`` times
+    the MoE balance loss.  The reference's ``forward_train``."""
+    extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    logits, _, aux = forward(params, cfg, batch["tokens"], extra, use_remat=use_remat,
+                             attn_impl=attn_impl)
+    if cfg.physical_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.physical_vocab, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, torch.full((), -1e30, dtype=logits.dtype,
+                                             device=logits.device), logits)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    loss = softmax_cross_entropy(logits, labels.clamp_min(0), mask)
+    return loss + aux_weight * aux
 
 
 def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,

@@ -26,11 +26,12 @@ from repro_torch.configs import get_config
 from repro_torch.gateway import serve_gateway
 from repro_torch.learn import ContinuousLearner, RollingWindowTrainer
 from repro_torch.kernels.edge_softmax import edge_softmax_agg_bwd_cuda, edge_softmax_agg_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.stage2_score import stage2_score_cuda
 from repro_torch.launch import serve as zoo_serve
+from repro_torch.launch import train as zoo_train
 from repro_torch.models import init_cache, init_params
 from repro_torch.models.hybrid import train_hybrid
 from repro_torch.params import from_numpy, to_numpy
@@ -76,6 +77,17 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def zoo_train_args(**kw):
+    """The launcher's argument namespace, parsed from no arguments (the
+    reference's defaults), with ``kw`` set on it."""
+    args = zoo_train.argparse.Namespace(
+        paper=False, gnn="gcn", arch="zamba2-1.2b", reduced=True, steps=1, epochs=1, batch=1,
+        seq=8, lr=3e-4, users=60, rings=6, seed=0)
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
 def _tiny_graph():
     g = COOGraph(num_nodes=3, src=np.array([1, 2]), dst=np.array([0, 0]),
                  etype=np.array([3, 3], np.int32), features=np.ones((3, 2)),
@@ -94,8 +106,11 @@ def _tiny_graph():
                                    "train_hybrid", "ProcessWorkerPool", "ShardServer",
                                    "serve_paper", "paper serve main",
                                    "RollingWindowTrainer", "serve_gateway",
-                                   "serve_gateway restore"])
-def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_path):
+                                   "serve_gateway restore", "train_arch", "zoo train main",
+                                   "train_paper", "paper train main"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_path,
+                                                           monkeypatch):
+    monkeypatch.chdir(tmp_path)    # the launchers write checkpoints/ under the cwd
     cfg = LNNConfig(hidden_dim=4, mlp_dims=(4,), feat_dim=2)
     zoo = get_config("zamba2-1.2b").reduced()
     calls = {
@@ -131,6 +146,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, no_cuda, tmp_p
         "serve_gateway": lambda: serve_gateway(ServiceConfig(), {}),
         "serve_gateway restore": lambda: serve_gateway(
             ServiceConfig(gateway={"checkpoint_dir": str(tmp_path)}), None),
+        "train_arch": lambda: zoo_train.train_arch(zoo_train_args()),
+        "zoo train main": lambda: zoo_train.main(["--arch", "zamba2-1.2b", "--steps", "1"]),
+        "train_paper": lambda: zoo_train.train_paper(zoo_train_args(arch=None, paper=True)),
+        "paper train main": lambda: zoo_train.main(["--paper", "--users", "60"]),
     }
     artifact = str(tmp_path / "service.json")
     ServiceConfig().save(artifact)
@@ -305,19 +324,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_grad_guard_refuses_a_gradient_it_cannot_give():
-    """The guard that ``stage2_score``, ``ssd_scan``, ``flash_attention`` and
-    ``gqa_decode`` run on the card, which have no backward kernel: it raises
-    when autograd would want a gradient through them, and only then."""
+    """The guard that ``stage2_score`` and ``gqa_decode`` run on the card,
+    which have no backward kernel (``ssd_scan`` and ``flash_attention`` have
+    theirs): it raises when autograd would want a gradient through them,
+    and only then."""
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="ssd_scan has no backward kernel.*torch.no_grad"):
-        ops.refuse_grad("ssd_scan", torch.zeros(2), x)
+    with pytest.raises(RuntimeError, match="gqa_decode has no backward kernel.*torch.no_grad"):
+        ops.refuse_grad("gqa_decode", torch.zeros(2), x)
     with torch.no_grad():
-        ops.refuse_grad("ssd_scan", x)
-    ops.refuse_grad("ssd_scan", torch.zeros(3), None, torch.zeros(2, dtype=torch.int32))
-    ops.refuse_grad("ssd_scan", x.detach())
+        ops.refuse_grad("gqa_decode", x)
+    ops.refuse_grad("gqa_decode", torch.zeros(3), None, torch.zeros(2, dtype=torch.int32))
+    ops.refuse_grad("gqa_decode", x.detach())
 
 
-@pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention", "gqa_decode"])
+@pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention", "gqa_decode",
+                                    "ssd_scan_bwd", "flash_attention_bwd"])
 def test_zoo_cuda_wrappers_refuse_cpu_tensors(kernel):
     x = torch.zeros(1, 64, 2, 64)
     dt, a, bc = torch.zeros(1, 64, 2), torch.zeros(2), torch.zeros(1, 64, 16)
@@ -326,6 +347,9 @@ def test_zoo_cuda_wrappers_refuse_cpu_tensors(kernel):
         "ssd_scan": lambda: ssd_scan_cuda(x, dt, a, bc, bc),
         "flash_attention": lambda: flash_attention_cuda(x, x, x),
         "gqa_decode": lambda: gqa_decode_cuda(q, x, x),
+        "ssd_scan_bwd": lambda: ssd_scan_bwd_cuda(x, dt, a, bc, bc, a, x),
+        "flash_attention_bwd": lambda: flash_attention_bwd_cuda(
+            x, x, x, x, x, torch.zeros(1, 64, 2)),
     }
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
