@@ -193,6 +193,9 @@ SSD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}   # of the output's scale
 # rounds: only f32 summation order and exp2 differ, which can move an output
 # by one bf16 step, at most 2^-7 of the scale
 SSD_MMA_TOL = 1e-2
+# the bf16 backward kernels against ref.{flash_attention,ssd_scan}_bwd_mma_ref,
+# which round where the kernels round: each gradient, of its scale
+GRAD_MMA_TOL = 1e-2
 ZOO_TOL = 5e-4               # whole-model logits, of their scale
 # the decoder group: granite-3-2b at full width and depth, the other five
 # configurations at full width, cut in depth to ~11 GB of bf16 weights each
@@ -290,13 +293,14 @@ def compare_scaled(out, want, tol: float, what: str) -> tuple[float, float]:
     return err, err / scale
 
 
-def profiled(fn) -> tuple[float, float, list, int]:
+def profiled(fn, also=()) -> tuple[float, float, list, int]:
     """Host-clock seconds of ``fn()`` ended by a synchronize, the card's busy
-    share over them, the five kernels with the most device time (ms), and
-    the number of kernels launched.  Device time sums the kernel events of
-    the ``torch.profiler`` trace, each once (an aten op's self device time
-    repeats the time of the kernels it launched, and a kernel launched
-    through ctypes has no aten op)."""
+    share over them, the five kernels with the most device time (ms) and
+    after them every other kernel whose name holds one of the strings in
+    ``also``, and the number of kernels launched.  Device time sums the
+    kernel events of the ``torch.profiler`` trace, each once (an aten op's
+    self device time repeats the time of the kernels it launched, and a
+    kernel launched through ctypes has no aten op)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -307,7 +311,8 @@ def profiled(fn) -> tuple[float, float, list, int]:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     for e in kernels:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time_total * 1e-3
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    top = ranked[:5] + [kv for kv in ranked[5:] if any(a in kv[0] for a in also)]
     busy = sum(per_kernel.values()) * 1e-3 / wall
     return wall, busy, [(name[:60], ms) for name, ms in top], len(kernels)
 
@@ -1832,11 +1837,15 @@ def zoo_grad_kernel_checks(dev) -> dict:
     ragged ones, f32 and bf16: ``flash_attention_bwd`` (and the saving
     forward: its output bit for bit the no-grad forward's, its row
     logsumexp against ``ref.attention_lse_ref``) and ``ssd_scan_bwd``.  Each
-    gradient within GRAD_TOL (f32) or 2e-2 (bf16) of its scale; two calls
-    give the same bits.  bf16 shapes (and f32 at zamba2's) are timed beside
-    the bound, the launch floor and, for attention, sdpa's backward
+    gradient within GRAD_TOL (f32) or 2e-2 (bf16) of its scale, bf16 also
+    within GRAD_MMA_TOL of the tensor-core kernels' plain models
+    (``ref.{flash_attention,ssd_scan}_bwd_mma_ref``); two calls give the
+    same bits.  bf16 shapes (and f32 at zamba2's) are timed beside the
+    bound, the launch floor and, for attention, sdpa's backward
     (``torch.autograd.grad`` through ``scaled_dot_product_attention``, its
-    forward's time taken off)."""
+    forward's time taken off).  Then shapes a kernel does not take (the
+    bf16 scan's N, either scan's shared memory just past a block's) must
+    raise before any launch."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1849,7 +1858,8 @@ def zoo_grad_kernel_checks(dev) -> dict:
     failures: list = []
     tiny = torch.zeros(1, device=dev)
     floor_ms = time_ms(lambda: tiny.zero_())
-    tol = {"float32": GRAD_TOL["atol"], "bfloat16": TOL["bfloat16"]["atol"]}
+    tol = {"float32": GRAD_TOL["atol"], "bfloat16": TOL["bfloat16"]["atol"],
+           "mma": GRAD_MMA_TOL}
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen).to(dev, dtype)
@@ -1873,6 +1883,9 @@ def zoo_grad_kernel_checks(dev) -> dict:
         results.setdefault(kernel, []).append(case)
         line = (f"{kernel:<19} {case['shape']:<50} max|d|={case['max_abs_err']:.2e} "
                 f"({case['err_of_scale']:.1e} of scale) same bits {case['same_bits']}")
+        if case.get("mma_max_abs_err") is not None:
+            line += (f" (mma ref {case['mma_max_abs_err']:.2e}, "
+                     f"{case['mma_err_of_scale']:.1e} of scale)")
         if case.get("ms") is not None:
             line += (f" kernel {case['ms'] * 1e3:9.2f} us  bound {case['bound_ms'] * 1e3:7.2f} us "
                      f"({case['bound_by']})  floor {floor_ms * 1e3:4.2f} us")
@@ -1909,6 +1922,10 @@ def zoo_grad_kernel_checks(dev) -> dict:
                     same_bits=same, forward_bits_kept=torch.equal(out, plain_out),
                     lse_max_abs_err=lse_err, ms=None, plain_ms=None, bound_ms=None,
                     bound_by=None, library_ms=None, launch_floor_ms=floor_ms)
+        if dtype == torch.bfloat16:
+            case["mma_max_abs_err"], case["mma_err_of_scale"] = worst_of_scale(
+                got, ref.flash_attention_bwd_mma_ref(*args), "mma",
+                [f"flash_attention_bwd {shape} d{x} (mma ref)" for x in "qkv"])
         if timed:
             qpos = torch.arange(sq)[:, None] + (sk - sq)
             kpos = torch.arange(sk)[None, :]
@@ -1958,6 +1975,10 @@ def zoo_grad_kernel_checks(dev) -> dict:
         case = dict(shape=shape, max_abs_err=err, err_of_scale=rel, tol_of_scale=tol[name],
                     same_bits=same, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
                     library_ms=None, launch_floor_ms=floor_ms)
+        if dtype == torch.bfloat16:
+            case["mma_max_abs_err"], case["mma_err_of_scale"] = worst_of_scale(
+                got, ref.ssd_scan_bwd_mma_ref(*args), "mma",
+                [f"ssd_scan_bwd {shape} d{w} (mma ref)" for w in ("x", "dt", "a", "b", "c", "d")])
         if timed:
             q, nc = 64, -(-s // 64)
             # per chunk and head: C·Bᵀ and dY·Xᵀ, the intra-chunk dx, db and
@@ -1966,9 +1987,10 @@ def zoo_grad_kernel_checks(dev) -> dict:
             flops = 2 * b * h * nc * (3 * q * q * n + 2 * q * q * p + 6 * q * n * p)
             case["bound_ms"], case["bound_by"] = bound(
                 tensor_bytes(*args, *(g for g in got if g is not None)), flops, dtype)
-            # what the design moves beyond that: the recomputed states and the
-            # per-head db and dc, each written once and read once
-            scratch = 4 * b * h * (nc * n * p + 2 * s * n)
+            # what the design moves beyond that, each written once and read
+            # once: the recomputed states (bf16: and their gradients) and the
+            # per-head db and dc
+            scratch = 4 * b * h * ((2 if dtype == torch.bfloat16 else 1) * nc * n * p + 2 * s * n)
             case["design_overhead_ms"] = 2 * scratch / HBM_BYTES_PER_S * 1e3
             case["ms"] = time_call_ms(lambda: ssd_scan_bwd_cuda(*args))
             if plain_timed:
@@ -1997,19 +2019,48 @@ def zoo_grad_kernel_checks(dev) -> dict:
         flash_case(ZOO_BATCH, 16, 16, ZOO_SEQ, LAUNCHER_FRAMES, 64, False, None, dtype,
                    timed=bf)
         flash_case(ZOO_BATCH, 16, 16, ZOO_SEQ, ZOO_SEQ, 64, True, None, dtype, timed=bf)
-        # ragged: padded last chunks, small N and P (the reduced configs'
-        # 32 x 32), N and P not multiples of 4; q tiles past Sq, key tiles
-        # past Sk, a window across tile edges, q longer than the keys (rows
-        # with no valid key), one query row over the vision tokens
+        # ragged: padded last chunks; f32 small N and P (the reduced
+        # configs' 32 x 32), N and P not multiples of 4; bf16 (N 64 or 128,
+        # P a multiple of 8) P of 32, 8 and 72 (two column tiles, not a
+        # multiple of 16); q tiles past Sq, key tiles past Sk, a window
+        # across tile edges, q longer than the keys (rows with no valid
+        # key), one query row over the vision tokens
         ssd_case(2, 200, 4, 64, 64, dtype, timed=False)
-        ssd_case(1, 77, 2, 32, 32, dtype, timed=False)
-        ssd_case(1, 70, 2, 6, 10, dtype, timed=False)
+        if bf:
+            ssd_case(1, 77, 2, 32, 64, dtype, timed=False)
+            ssd_case(1, 70, 2, 8, 128, dtype, timed=False)
+            ssd_case(2, 130, 3, 72, 64, dtype, timed=False)
+        else:
+            ssd_case(1, 77, 2, 32, 32, dtype, timed=False)
+            ssd_case(1, 70, 2, 6, 10, dtype, timed=False)
         flash_case(2, 16, 4, 200, 200, 64, True, 64, dtype, timed=False)
         flash_case(2, 4, 2, 100, 130, 128, False, None, dtype, timed=False)
         flash_case(1, 4, 2, 130, 100, 64, True, None, dtype, timed=False)
         flash_case(1, 8, 2, 130, 100, 128, True, 40, dtype, timed=False)
         flash_case(2, 4, 4, 17, 17, 64, True, None, dtype, timed=False)
         flash_case(2, 8, 2, 1, vlm_tv, 64, False, None, dtype, timed=False)
+    # shapes a backward kernel does not take raise before any launch: the
+    # bf16 kernel's N outside (64, 128), and each kernel's shared memory
+    # just past a block's (the guards count what the launchers ask for)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import SMEM_OPTIN, bwd_mma_smem_bytes, bwd_smem_bytes
+    for n, p, dtype, need in ((32, 64, torch.bfloat16, None),
+                              (64, 143, torch.float32, bwd_smem_bytes(64, 143)),
+                              (128, 216, torch.bfloat16, bwd_mma_smem_bytes(128, 216))):
+        x, dy = randn(1, 64, 1, p, dtype=dtype), randn(1, 64, 1, p, dtype=dtype)
+        bm, cm = randn(1, 64, n, dtype=dtype), randn(1, 64, n, dtype=dtype)
+        dt, a = torch.full((1, 64, 1), 0.1, device=dev), torch.full((1,), -1.0, device=dev)
+        before = _build.LAUNCHES["ssd_scan_bwd"]
+        try:
+            ssd_scan_bwd_cuda(x, dt, a, bm, cm, None, dy)
+            failures.append(f"ssd_scan_bwd N={n} P={p} {dtype}: no ValueError")
+        except ValueError as e:
+            print(f"ssd_scan_bwd        N={n} P={p} {str(dtype).split('.')[-1]}: refused before "
+                  f"any launch ({e})")
+        if need is not None and not need > SMEM_OPTIN:
+            failures.append(f"ssd_scan_bwd N={n} P={p}: {need} bytes is not past the limit")
+        if _build.LAUNCHES["ssd_scan_bwd"] != before:
+            failures.append(f"ssd_scan_bwd N={n} P={p} {dtype}: launched")
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"{len(failures)} zoo backward case(s) out of tolerance:\n"
@@ -2181,7 +2232,7 @@ def zoo_train_phase(dev) -> dict:
         state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
 
     run_step()
-    wall, busy, top, n = profiled(run_step)
+    wall, busy, top, n = profiled(run_step, also=("flash_attention_bwd", "ssd_scan_bwd"))
     row.update(step_profiled_ms=wall * 1e3, step_busy_share=busy, step_top=top,
                step_kernels=n)
     del params, opt, state, batch
@@ -4090,6 +4141,9 @@ def main() -> int:
     if "--zoo-train" in sys.argv[1:]:
         zoo_train_phase(dev)
         return 0
+    if "--zoo-grad-kernels" in sys.argv[1:]:
+        zoo_grad_kernel_checks(dev)
+        return 0
 
     # ----------------------------------------------------------------- data
     t0 = time.perf_counter()
@@ -4327,12 +4381,19 @@ def main() -> int:
         "backward of the forward's kernel, whose saving forward writes each row's logsumexp: "
         "delta = rowsum(dout * out), then dk/dv (a block per key tile, over the kv head's q "
         "heads and the q tiles that see it) and dq (a block per q tile), each 64 x 64 tile of "
-        "S and dP recomputed; f32 FMA from shared memory in both dtypes, no atomics" + reference)
+        "S and dP recomputed; bf16 (this line) FlashAttention-2's backward on mma.sync: 4 "
+        "warps of 16 rows, tiles double-buffered by cp.async, S/dP by mma, P and dS rounded "
+        "to bf16 as A fragments for dV += P^T dO, dK += dS^T Q, dQ += dS K (ldmatrix.trans); "
+        "f32 keeps f32 FMA from shared memory; no atomics" + reference)
     grad_notes["ssd_scan_bwd"] = (
-        "backward of the chunked scan: a block per (head, sequence) recomputes the state before "
-        "each chunk, then walks the chunks in reverse carrying the state's gradient, a warp "
-        "per row of the chunk; db, dc (per head) and da, dd (per sequence) summed in order by "
-        "a second kernel; f32 FMA in both dtypes, no atomics" + reference)
+        "backward of the chunked scan; bf16 (this line) chunk-parallel on mma.sync: a states "
+        "kernel (a block per 64 columns, head and sequence) writes the state before each chunk "
+        "and the state's gradient after it, each chunk's sum one mma product; then a block per "
+        "(chunk, head, sequence) does C B^T, dY X^T, C H, dY H^T, X R^T, B R and the three "
+        "lower-triangular weighted products on the tensor cores, the elementwise terms, "
+        "d(cum) and its prefix sum's reverse in f32; f32 keeps a block per (head, sequence) "
+        "on f32 FMA; db, dc (per head) and da, dd summed in order by a last kernel; no "
+        "atomics" + reference)
     kernels = []
     for name, case in chosen.items():
         source, replaces = meta[name]

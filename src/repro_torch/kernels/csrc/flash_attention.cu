@@ -495,9 +495,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 // Bound on the H100: at zamba2-1.2b's training shape (B=4 Hq=Hkv=32 S=512
 // Dh=64, bf16, causal) the function reads q, k, v, O, dO and writes dq, dk,
 // dv (~67 MB, ~20 µs) and does five causal products (~10.7 GFLOP, ~11 µs
-// at the bf16 tensor-core peak): bytes bound.  This first design is simple
-// and is bound by neither: every product is f32 FMA on the CUDA cores from
-// shared memory, bf16 converted to f32 as it is staged.
+// at the bf16 tensor-core peak): bytes bound.
 //
 // Three kernels, no atomics, so two calls give the same bits:
 //   1. delta = rowsum(dO ∘ O), a warp per row.
@@ -507,12 +505,35 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 //      and summing Pᵀ dO and dSᵀ Q in registers.
 //   3. dq: a block per (q tile of 64, q head, batch) loops over its key
 //      tiles (tile_range) and sums dS K in registers.
-// 256 threads as a 16x16 grid, each holding a 4x4 tile of the 64x64 S and
-// dP and a 4 x Dh/16 tile of its output; shared-memory rows padded to an
-// odd stride.  Masks as the forward's: a masked key has P = dS = 0, a key
-// past Sk counts nothing, and a row with no valid key (causal, q before
-// the first key, whose output is the mean of v) has P = 1 / Sk = exp(-lse)
-// on every key and dS = 0.
+// Masks as the forward's: a masked key has P = dS = 0, a key past Sk
+// counts nothing, and a row with no valid key (causal, q before the first
+// key, whose output is the mean of v) has P = 1 / Sk = exp(-lse) on every
+// key and dS = 0.
+//
+// f32 (the zoo's f32 agreement run on the card), the first design: every
+// product is f32 FMA on the CUDA cores from shared memory (tensor cores
+// would round to TF32).  256 threads as a 16x16 grid, each holding a 4x4
+// tile of the 64x64 S and dP and a 4 x Dh/16 tile of its output;
+// shared-memory rows padded to an odd stride.
+//
+// bf16 (zamba2's training), FlashAttention-2's backward on the tensor
+// cores, built from the forward's parts: 4 warps a block, 16 rows each;
+// tiles double-buffered in shared memory by 16-byte cp.async, rows padded
+// by 16 bytes for ldmatrix; all five products mma.sync.m16n8k16 bf16 with
+// f32 accumulators.  dk/dv: a warp owns 16 keys; Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+// (K and V fragments loaded once and held in registers at Dh 64; at Dh 128
+// read from shared memory each tile, and the q tile taken in two passes
+// of 32 rows, so that the 16 x 128 dk and dv accumulators fit without
+// spilling); Pᵀ and dSᵀ formed in registers in base 2, rounded to bf16
+// and fed as A fragments (the forward's P·V repack) to dV += Pᵀ·dO and
+// dK += dSᵀ·Q, dO and Q by ldmatrix.trans; the first key tiles (the
+// heaviest under causal) launch first.  dq: a warp owns 16 q rows; Q, dO
+// fragments, lse and delta in registers; S and dP by mma, dS rounded to
+// bf16, dQ += dS·K with K by ldmatrix.trans (at Dh 128 the key tile in two
+// passes of 32); the heaviest causal q tiles launch first.  Values are
+// rounded to bf16 where they feed a product (P, dS) and at the outputs,
+// and only there (kernels/ref.py::flash_attention_bwd_mma_ref models the
+// same).  Takes Dh in {64, 128}.
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -524,8 +545,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
 
 // rows [row0, row0 + 64) of a [rows, DH] matrix into f32 smem rows of
 // stride DH + 1; rows past `rows` are zero
@@ -796,6 +815,394 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ backward, bf16, tensor cores
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The dk/dv block of key tile t walks items i = r_h n_qt + qt (its kv
+// head's q heads in order, then their q tiles); the next one after i that
+// sees the tile, or total.  Not every q tile between the first and the last
+// that see it does (a q tile with rows before the first key visits every
+// key tile; the next one may not).
+__device__ __forceinline__ int next_item(int i, int total, int n_qt, int t, int Sq, int Sk,
+                                         int causal, int window) {
+  for (++i; i < total; ++i) {
+    int tb, te;
+    tile_range((i % n_qt) * BQ, Sq, Sk, causal, window, tb, te);
+    if (t >= tb && t < te) break;
+  }
+  return i;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(MMA_THREADS) flash_attention_bwd_dkdv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq,
+    int Hkv, int Sq, int Sk, int causal, int window, float scale, float scale_log2) {
+  constexpr int LD = DH + 8, KSL = DH / 16, NT = DH / 8;
+  constexpr bool KV_REGS = DH == 64;            // K and V fragments held in registers
+  constexpr int QH = DH == 64 ? BQ : BQ / 2;    // q rows (columns of Sᵀ) a pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][LD], at the end dk's staging
+  bf16* vs = ks + BK * LD;                        // [BK][LD], at the end dv's
+  bf16* qs = vs + BK * LD;                        // [2][BQ][LD]
+  bf16* dos = qs + 2 * BQ * LD;                   // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);   // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                              // [2][BQ]
+
+  const int n_kt = (Sk + BK - 1) / BK, heads = gridDim.x / n_kt;
+  const int t = (int)blockIdx.x / heads, bh = (int)blockIdx.x % heads;
+  const int hk = bh % Hkv, b = bh / Hkv, rep = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t4 = lane % 4;
+  const int k0 = t * BK, off = Sk - Sq, n_qt = (Sq + BQ - 1) / BQ, total = rep * n_qt;
+  const size_t kvb = ((size_t)b * Hkv + hk) * Sk * DH;
+  const int kp0 = k0 + warp * 16 + g, kp1 = kp0 + 8;   // this lane's two keys
+
+  // item i's q and dO rows, lse and delta into stage buf
+  const auto load_item = [&](int i, int buf) {
+    const size_t bhq = (size_t)b * Hq + hk * rep + i / n_qt;
+    const int q0 = (i % n_qt) * BQ, r = tid % BQ;
+    load_tile<DH, LD>(qs + buf * BQ * LD, q + bhq * Sq * DH, q0, Sq);
+    load_tile<DH, LD>(dos + buf * BQ * LD, dout + bhq * Sq * DH, q0, Sq);
+    const bool in = q0 + r < Sq;
+    cp_async4((tid < BQ ? lse_s : delta_s) + buf * BQ + r,
+              (tid < BQ ? lse : delta) + bhq * Sq + (in ? q0 + r : 0), in);
+  };
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  unsigned kf[KSL][4], vf[KSL][4];   // KV_REGS only
+  int cur = next_item(-1, total, n_qt, t, Sq, Sk, causal, window);
+  if (cur < total) {
+    load_tile<DH, LD>(ks, k + kvb, k0, Sk);
+    load_tile<DH, LD>(vs, v + kvb, k0, Sk);
+    load_item(cur, 0);
+    cp_async_commit();
+  }
+  for (int buf = 0, first = 1; cur < total; buf ^= 1, first = 0) {
+    const int nxt = next_item(cur, total, n_qt, t, Sq, Sk, causal, window);
+    if (nxt < total) {
+      load_item(nxt, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (KV_REGS) {
+      if (first) {
+#pragma unroll
+        for (int kk = 0; kk < KSL; ++kk) {
+          frag_a(ks, LD, warp * 16, kk * 16, kf[kk]);
+          frag_a(vs, LD, warp * 16, kk * 16, vf[kk]);
+        }
+      }
+    }
+    const int q0 = (cur % n_qt) * BQ, qlo = q0 + off, qhi = q0 + BQ - 1 + off;
+    const bf16* qt = qs + buf * BQ * LD;
+    const bf16* dot = dos + buf * BQ * LD;
+    const float* lt = lse_s + buf * BQ;
+    const float* dlt = delta_s + buf * BQ;
+    const bool edge = k0 + BK > Sk || q0 + BQ > Sq || (causal && k0 + BK - 1 > qlo) ||
+                      (window > 0 && k0 <= qhi - window);
+#pragma unroll
+    for (int c0 = 0; c0 < BQ; c0 += QH) {   // the pass's q rows [c0, c0 + QH) of the tile
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys x QH q rows a warp
+      float s[QH / 8][4], dp[QH / 8][4];
+#pragma unroll
+      for (int n = 0; n < QH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSL; ++kk) {
+        unsigned ka[4], va[4];
+        if constexpr (KV_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[kk][e];
+            va[e] = vf[kk][e];
+          }
+        } else {
+          frag_a(ks, LD, warp * 16, kk * 16, ka);
+          frag_a(vs, LD, warp * 16, kk * 16, va);
+        }
+#pragma unroll
+        for (int np = 0; np < QH / 16; ++np) {
+          unsigned qb[4], ob[4];
+          frag_b2(qt, LD, c0 + np * 16, kk * 16, qb);
+          frag_b2(dot, LD, c0 + np * 16, kk * 16, ob);
+          mma_bf16(s[2 * np], ka, qb[0], qb[1]);
+          mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
+          mma_bf16(dp[2 * np], va, ob[0], ob[1]);
+          mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      // Pᵀ and dSᵀ in base 2, rounded to bf16 as A fragments
+      unsigned pa[QH / 16][4], da[QH / 16][4];
+#pragma unroll
+      for (int n = 0; n < QH / 8; ++n) {
+        const int ci = c0 + n * 8 + 2 * t4;   // this lane's two q rows of the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + ci);
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + ci);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse2 = ((e & 1) ? l2.y : l2.x) * LOG2E;
+          p[e] = exp2f(fmaf(s[n][e], scale_log2, -lse2));
+          ds[e] = p[e] * (dp[n][e] - ((e & 1) ? d2.y : d2.x));
+          if (edge) {
+            const int kpos = e < 2 ? kp0 : kp1, qi = q0 + ci + (e & 1), qpos = qi + off;
+            bool ok = kpos < Sk && qi < Sq;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+            if (!ok) {   // a row with no valid key weighs its Sk keys alike
+              p[e] = causal && qpos < 0 && kpos < Sk && qi < Sq ? exp2f(-lse2) : 0.f;
+              ds[e] = 0.f;
+            }
+          }
+        }
+        pa[n / 2][(n % 2) * 2] = pack_bf16(p[0], p[1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        da[n / 2][(n % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        da[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over the pass's q rows
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk)
+#pragma unroll
+        for (int dd = 0; dd < DH / 16; ++dd) {
+          unsigned ob[4], qb[4];
+          frag_b2_t(dot, LD, c0 + kk * 16, dd * 16, ob);
+          frag_b2_t(qt, LD, c0 + kk * 16, dd * 16, qb);
+          mma_bf16(dva[2 * dd], pa[kk], ob[0], ob[1]);
+          mma_bf16(dva[2 * dd + 1], pa[kk], ob[2], ob[3]);
+          mma_bf16(dka[2 * dd], da[kk], qb[0], qb[1]);
+          mma_bf16(dka[2 * dd + 1], da[kk], qb[2], qb[3]);
+        }
+    }
+    __syncthreads();   // every warp is done with this stage before it is refilled
+    cur = nxt;
+  }
+
+  // dk = scale dSᵀ·Q and dv, staged in this warp's own rows of ks and vs
+  // (no other warp reads them), then 16-byte stores
+  bf16* sk = ks + warp * 16 * LD;
+  bf16* sv = vs + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(sk + g * LD + c) =
+        __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(sk + (g + 8) * LD + c) =
+        __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(sv + g * LD + c) =
+        __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(sv + (g + 8) * LD + c) =
+        __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * (DH / 8); i += 32) {
+    const int r = i / (DH / 8), c = (i - r * (DH / 8)) * 8, row = k0 + warp * 16 + r;
+    if (row < Sk) {
+      *reinterpret_cast<uint4*>(dk + kvb + (size_t)row * DH + c) =
+          *reinterpret_cast<const uint4*>(sk + r * LD + c);
+      *reinterpret_cast<uint4*>(dv + kvb + (size_t)row * DH + c) =
+          *reinterpret_cast<const uint4*>(sv + r * LD + c);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(MMA_THREADS) flash_attention_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int window, float scale, float scale_log2) {
+  constexpr int LD = DH + 8, KSL = DH / 16, NT = DH / 8;
+  constexpr int KH = DH == 64 ? BK : BK / 2;    // keys a pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LD], at the end dq's staging
+  bf16* dos = qs + BQ * LD;                       // [BQ][LD]
+  bf16* ks = dos + BQ * LD;                       // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                    // [2][BK][LD]
+
+  const int n_qt = (Sq + BQ - 1) / BQ, heads = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - (int)blockIdx.x / heads, bh = (int)blockIdx.x % heads;
+  const int hq = bh % Hq, b = bh / Hq, hk = hq / (Hq / Hkv);
+  const int q0 = qt * BQ, off = Sk - Sq;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t4 = lane % 4;
+  const size_t bhq = (size_t)b * Hq + hq;
+  const bf16* kb = k + ((size_t)b * Hkv + hk) * Sk * DH;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * Sk * DH;
+
+  int t_begin, t_end;
+  tile_range(q0, Sq, Sk, causal, window, t_begin, t_end);
+  load_tile<DH, LD>(qs, q + bhq * Sq * DH, q0, Sq);
+  load_tile<DH, LD>(dos, dout + bhq * Sq * DH, q0, Sq);
+  cp_async_commit();
+  if (t_begin < t_end) {
+    load_tile<DH, LD>(ks, kb, t_begin * BK, Sk);
+    load_tile<DH, LD>(vs, vb, t_begin * BK, Sk);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // this warp's 16 q and dO rows as A fragments; its lanes' rows' lse and delta
+  unsigned qf[KSL][4], of[KSL][4];
+#pragma unroll
+  for (int kk = 0; kk < KSL; ++kk) {
+    frag_a(qs, LD, warp * 16, kk * 16, qf[kk]);
+    frag_a(dos, LD, warp * 16, kk * 16, of[kk]);
+  }
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float lse0 = r0 < Sq ? lse[bhq * Sq + r0] * LOG2E : 0.f;
+  const float lse1 = r1 < Sq ? lse[bhq * Sq + r1] * LOG2E : 0.f;
+  const float de0 = r0 < Sq ? delta[bhq * Sq + r0] : 0.f;
+  const float de1 = r1 < Sq ? delta[bhq * Sq + r1] : 0.f;
+  const int qp0 = r0 + off, qp1 = r1 + off;
+  const int qlo = q0 + off, qhi = q0 + BQ - 1 + off;   // over the whole q tile
+  float dqa[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_tile<DH, LD>(ks + (buf ^ 1) * BK * LD, kb, (t + 1) * BK, Sk);
+      load_tile<DH, LD>(vs + (buf ^ 1) * BK * LD, vb, (t + 1) * BK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + buf * BK * LD;
+    const bf16* vt = vs + buf * BK * LD;
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qlo) ||
+                      (window > 0 && k0 <= qhi - window);
+#pragma unroll
+    for (int c0 = 0; c0 < BK; c0 += KH) {   // the pass's keys [c0, c0 + KH) of the tile
+      float s[KH / 8][4], dp[KH / 8][4];
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSL; ++kk)
+#pragma unroll
+        for (int np = 0; np < KH / 16; ++np) {
+          unsigned kb2[4], vb2[4];
+          frag_b2(kt, LD, c0 + np * 16, kk * 16, kb2);
+          frag_b2(vt, LD, c0 + np * 16, kk * 16, vb2);
+          mma_bf16(s[2 * np], qf[kk], kb2[0], kb2[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], kb2[2], kb2[3]);
+          mma_bf16(dp[2 * np], of[kk], vb2[0], vb2[1]);
+          mma_bf16(dp[2 * np + 1], of[kk], vb2[2], vb2[3]);
+        }
+      // dS in base 2, rounded to bf16 as A fragments
+      unsigned da[KH / 16][4];
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          const float p = exp2f(fmaf(s[n][e], scale_log2, -(lo ? lse0 : lse1)));
+          ds[e] = p * (dp[n][e] - (lo ? de0 : de1));
+          if (edge) {
+            const int kpos = k0 + c0 + n * 8 + 2 * t4 + (e & 1), qpos = lo ? qp0 : qp1;
+            bool ok = kpos < Sk;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+            if (!ok) ds[e] = 0.f;
+          }
+        }
+        da[n / 2][(n % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        da[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dQ += dS·K, K by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < KH / 16; ++kk)
+#pragma unroll
+        for (int dd = 0; dd < DH / 16; ++dd) {
+          unsigned kb2[4];
+          frag_b2_t(kt, LD, c0 + kk * 16, dd * 16, kb2);
+          mma_bf16(dqa[2 * dd], da[kk], kb2[0], kb2[1]);
+          mma_bf16(dqa[2 * dd + 1], da[kk], kb2[2], kb2[3]);
+        }
+    }
+    __syncthreads();   // every warp is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // dq = scale dS·K, staged in this warp's own rows of qs, then 16-byte stores
+  bf16* st = qs + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(st + g * LD + c) =
+        __floats2bfloat162_rn(dqa[n][0] * scale, dqa[n][1] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(st + (g + 8) * LD + c) =
+        __floats2bfloat162_rn(dqa[n][2] * scale, dqa[n][3] * scale);
+  }
+  __syncwarp();
+  bf16* qb = dq + bhq * Sq * DH;
+  for (int i = lane; i < 16 * (DH / 8); i += 32) {
+    const int r = i / (DH / 8), c = (i - r * (DH / 8)) * 8, row = q0 + warp * 16 + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(qb + (size_t)row * DH + c) =
+          *reinterpret_cast<const uint4*>(st + r * LD + c);
+  }
+}
+
+// Shared memory of the two bf16 backward blocks: six [64][Dh + 8] bf16
+// tiles each (dk/dv: K, V and two stages of q and dO; dq: q, dO and two
+// stages of K and V), and dk/dv's two stages of lse and delta.
+template <int DH>
+constexpr size_t bwd_bf16_smem(bool dkdv) {
+  return sizeof(bf16) * 6 * (size_t)BK * (DH + 8) + (dkdv ? sizeof(float) * 4 * BQ : 0);
+}
+
+template <int DH>
+int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
+                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                    void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int causal, int window,
+                    float scale, void* stream) {
+  const long long kv_blocks = (long long)((Sk + BK - 1) / BK) * Hkv * B;
+  const long long q_blocks = (long long)((Sq + BQ - 1) / BQ) * Hq * B;
+  if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_bf16_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bwd_bf16_smem<DH>(true));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_bf16_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bwd_bf16_smem<DH>(false));
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = (long long)B * Hq * Sq;
+  flash_attention_bwd_delta_kernel<bf16, DH><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      (const bf16*)out, (const bf16*)dout, delta, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dkdv_bf16_kernel<DH>
+      <<<(unsigned)kv_blocks, MMA_THREADS, bwd_bf16_smem<DH>(true), st>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta,
+          (bf16*)dk, (bf16*)dv, Hq, Hkv, Sq, Sk, causal, window, scale, scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dq_bf16_kernel<DH>
+      <<<(unsigned)q_blocks, MMA_THREADS, bwd_bf16_smem<DH>(false), st>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta,
+          (bf16*)dq, Hq, Hkv, Sq, Sk, causal, window, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd_dh(const void* q, const void* k, const void* v, const void* out,
                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -843,6 +1250,13 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
                                         float* delta, void* dq, void* dk, void* dv, int B,
                                         int Hq, int Hkv, int Sq, int Sk, int Dh, int causal,
                                         int window, float scale, void* stream) {
-  return launch_bwd_dh<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
-                                      Sq, Sk, Dh, causal, window, scale, stream);
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (Dh == 64)
+    return launch_bwd_bf16<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
+                               causal, window, scale, stream);
+  if (Dh == 128)
+    return launch_bwd_bf16<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
+                                causal, window, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }

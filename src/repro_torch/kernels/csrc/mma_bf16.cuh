@@ -36,3 +36,32 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&h);
 }
+
+// Fragments of a bf16 matrix M in shared memory, rows of stride ld, for
+// mma_bf16 (the backward kernels' products).  The A fragment of rows
+// [r0, r0 + 16) and columns [c0, c0 + 16) of M:
+__device__ __forceinline__ void frag_a(const __nv_bfloat16* m, int ld, int r0, int c0,
+                                       unsigned (&f)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(m + (r0 + lane % 8 + (lane / 8 % 2) * 8) * ld + c0 + lane / 16 * 8, f);
+}
+// ... the same of Mᵀ: rows [r0, r0 + 16) of Mᵀ are columns of M
+__device__ __forceinline__ void frag_a_t(const __nv_bfloat16* m, int ld, int r0, int c0,
+                                         unsigned (&f)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_trans(m + (c0 + lane / 16 * 8 + lane % 8) * ld + r0 + (lane / 8 % 2) * 8, f);
+}
+// B fragments of two 8-wide n-tiles [n0, n0 + 16) and the k slice
+// [k0, k0 + 16) of B = Mᵀ (B's columns are rows of M): f[0], f[1] for n
+// tile n0, f[2], f[3] for n0 + 8
+__device__ __forceinline__ void frag_b2(const __nv_bfloat16* m, int ld, int n0, int k0,
+                                        unsigned (&f)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(m + (n0 + lane % 8 + lane / 16 * 8) * ld + k0 + (lane / 8 % 2) * 8, f);
+}
+// ... the same of B = M (B's rows are rows of M)
+__device__ __forceinline__ void frag_b2_t(const __nv_bfloat16* m, int ld, int k0, int n0,
+                                          unsigned (&f)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_trans(m + (k0 + lane % 8 + (lane / 8 % 2) * 8) * ld + n0 + lane / 16 * 8, f);
+}

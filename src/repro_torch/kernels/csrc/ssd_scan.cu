@@ -679,11 +679,11 @@ extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
 //
 // Bound on the H100: at zamba2-1.2b's training shape (B=4 S=512 H=64 P=64
 // N=64, bf16) the function reads x, dy, b, c, dt and writes their
-// gradients (~52 MB, ~16 µs).  This first design is simple and bound by
-// neither bytes nor the tensor cores: every product is f32 FMA from shared
-// memory, bf16 converted to f32 as it is staged.
+// gradients (~52 MB, ~16 µs).
 //
-// One block per (head, sequence), 256 threads (8 warps):
+// f32 (the zoo's f32 agreement run on the card), the first design: every
+// product is f32 FMA from shared memory (tensor cores would round to
+// TF32).  One block per (head, sequence), 256 threads (8 warps):
 //   1. forward over the chunks, carrying the [N, P] f32 state in shared
 //      memory and writing the state before each chunk to scratch (the
 //      forward kernel saves nothing);
@@ -698,7 +698,8 @@ extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
 // memory are padded to an odd stride, so the lanes of a warp fall in
 // distinct banks.  A ragged last chunk has no-op rows (dt = 0, x = b = c =
 // dy = 0), whose gradients are not written.  Any N and P whose buffers fit
-// a block's 227 KB (kernels/ssd_scan.py::bwd_smem_bytes).
+// a block's 227 KB (kernels/ssd_scan.py::bwd_smem_bytes).  bf16 (zamba2's
+// training) is chunk-parallel on the tensor cores, below.
 
 namespace {
 
@@ -708,8 +709,6 @@ template <typename T>
 __device__ __forceinline__ float ld_f32(const T* p);
 template <>
 __device__ __forceinline__ float ld_f32<float>(const float* p) { return *p; }
-template <>
-__device__ __forceinline__ float ld_f32<bf16>(const bf16* p) { return __bfloat162float(*p); }
 template <typename T>
 __device__ __forceinline__ T st_val(float v);
 template <>
@@ -961,13 +960,15 @@ __global__ void __launch_bounds__(BWD_THREADS) ssd_scan_bwd_kernel(
   }
 }
 
-// db and dc summed over the heads, da and dd over the sequences, in order
+// db and dc summed over the heads, da and dd over their R rows of sums
+// (the sequences; the bf16 kernel's (sequence, chunk) pairs), in order
 template <typename T>
 __global__ void ssd_scan_bwd_reduce_kernel(const float* __restrict__ db_part,
                                            const float* __restrict__ dc_part,
                                            const float* __restrict__ sums, T* __restrict__ db,
                                            T* __restrict__ dc, float* __restrict__ da,
-                                           float* __restrict__ dd, int B, int S, int H, int N) {
+                                           float* __restrict__ dd, int B, int S, int H, int N,
+                                           int R) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long per_seq = (long long)S * N;
   if (idx < B * per_seq) {
@@ -983,9 +984,9 @@ __global__ void ssd_scan_bwd_reduce_kernel(const float* __restrict__ db_part,
   }
   if (idx < H) {
     float sa = 0.f, sd = 0.f;
-    for (int bb = 0; bb < B; ++bb) {
-      sa += sums[(size_t)bb * H + idx];
-      sd += sums[((size_t)B + bb) * H + idx];
+    for (int r = 0; r < R; ++r) {
+      sa += sums[(size_t)r * H + idx];
+      sd += sums[((size_t)R + r) * H + idx];
     }
     da[idx] = sa;
     if (dd) dd[idx] = sd;
@@ -1016,7 +1017,721 @@ int launch_bwd(const void* x, const void* dt, const void* a, const void* b, cons
   const long long total = std::max((long long)B * S * N, (long long)H);
   ssd_scan_bwd_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       (const float*)db_part, (const float*)dc_part, (const float*)sums, (T*)db, (T*)dc,
-      (float*)da, (float*)dd, B, S, H, N);
+      (float*)da, (float*)dd, B, S, H, N, B);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ backward, bf16, tensor cores
+//
+// Chunk-parallel: across chunks only the [N, P] state H and its gradient R
+// carry, so they are computed first, and then every chunk's gradients at
+// once.  Three kernels:
+//   1. states: a block per (64 columns of P, head, sequence), the forward
+//      kernel's layout, walks the chunks forward writing H_k (the state
+//      before chunk k) to f32 scratch, then in reverse writing R_k (the
+//      gradient of H_{k+1}): H_{k+1} = exp(clip(T)) H_k + Σ_j w_j b_j ⊗ x_j
+//      and R_{k-1} = exp(clip(T)) R_k + Σ_i e_i c_i ⊗ dy_i, each chunk's sum
+//      one [N x Q]·[Q x P] mma product into the f32 accumulators that hold
+//      the carried state, chunks prefetched by cp.async as in the forward;
+//   2. chunk: a block per (chunk, head, sequence), 4 warps of 16 rows,
+//      reads the chunk, H_k and R_k (rounded to bf16 in shared memory, their
+//      f32 dot <H, R> taken on the way) and does the rest on the tensor
+//      cores: G = C·Bᵀ and dM = dY·Xᵀ (rows i of a warp, the tiles j <= i),
+//      C·H and dY·Hᵀ (dc's and d(cum)'s inter-chunk terms), X·Rᵀ and B·R
+//      (db's and dx's state terms), and the three lower-triangular products
+//      dc += (dM∘L∘dt)·B, db += dt (dM∘L)ᵀ·C, dx += dt (G∘L)ᵀ·dY, the last
+//      two reading the factors written by the warps of rows i, transposed,
+//      by ldmatrix.trans;
+//   3. the reduce above: db, dc over the heads, da, dd over the (sequence,
+//      chunk) pairs, in order.
+// In f32 on the CUDA cores, as the closed form: L, the clip masks, the
+// weighted factors before their rounding, dw, dl_row and dl_col (dl_ij's
+// two sums cancel in d(cum), so they never see bf16), d(cum)'s prefix-sum
+// reverse and the chunk's prefix sums (warp scans), <H, R>, and every
+// accumulator.  Rounded to bf16, and only there
+// (kernels/ref.py::ssd_scan_bwd_mma_ref models the same): the operands
+// b_j w_j and c_i e_i of the state sums, H_k and R_k as operands, the
+// factors G∘L, dM∘L and dM∘L∘dt, and the outputs dx, db, dc.  Exponents in
+// base 2 (ex2.approx), as the forward.  No atomics: two calls give the same
+// bits.  Takes N in {64, 128} and P a multiple of 8 whose buffers fit a
+// block (kernels/ssd_scan.py::bwd_mma_smem_bytes).
+
+constexpr int ST_THREADS = 256;   // states: 8 warps, 2 halves of 64 columns x 4 row groups
+constexpr int CG_THREADS = 128;   // chunk: 4 warps x 16 rows of the chunk
+constexpr int LDQ = Q + 8;        // rows of the chunk-square factors: 16 bytes of pad
+
+// The chunk's inclusive prefix sums of dt·a (base 2), by one warp, two
+// steps a lane: cum[2 lane], cum[2 lane + 1].
+__device__ __forceinline__ float2 chunk_cum2(const float* dts, float ah2, int lane) {
+  const float2 d = *reinterpret_cast<const float2*>(dts + 2 * lane);
+  const float v0 = d.x * ah2;
+  float run = v0 + d.y * ah2;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, run, off);
+    if (lane >= off) run += o;
+  }
+  const float before = __shfl_up_sync(0xffffffffu, run, 1);
+  return make_float2((lane > 0 ? before : 0.f) + v0, run);
+}
+
+// One stage of the states kernel: the chunk's b or c [Q][N + 8] and x or dy
+// [Q][LDX] (the block's 64 columns; bf16), dt, its prefix sums and the
+// operand's scales [Q] (f32).
+template <int N>
+struct StLayout {
+  static constexpr int LDN = N + 8;
+  static constexpr size_t OP = 0, VAL = OP + sizeof(bf16) * Q * LDN,
+                          DT = VAL + sizeof(bf16) * Q * LDX, CUM = DT + sizeof(float) * Q,
+                          SC = CUM + sizeof(float) * Q, STAGE = SC + sizeof(float) * Q,
+                          BYTES = 2 * STAGE;
+};
+
+template <int N>
+__device__ __forceinline__ void st_load(unsigned char* stage, const bf16* __restrict__ op,
+                                        const bf16* __restrict__ val,
+                                        const float* __restrict__ dt, int b, int h, int p0,
+                                        int s0, int S, int H, int P) {
+  using L = StLayout<N>;
+  constexpr int CPR = N / 8, XPR = PT / 8;   // 16-byte pieces a row
+  bf16* os = reinterpret_cast<bf16*>(stage + L::OP);
+  bf16* vs = reinterpret_cast<bf16*>(stage + L::VAL);
+  float* dts = reinterpret_cast<float*>(stage + L::DT);
+  for (int i = threadIdx.x; i < Q * CPR; i += ST_THREADS) {
+    const int r = i / CPR, col = (i - r * CPR) * 8, t = s0 + r;
+    const bool in = t < S;
+    cp_async16(os + r * L::LDN + col, op + ((size_t)b * S + (in ? t : 0)) * N + col, in);
+  }
+  for (int i = threadIdx.x; i < Q * XPR; i += ST_THREADS) {
+    const int r = i / XPR, col = (i - r * XPR) * 8, t = s0 + r, p = p0 + col;
+    const bool in = t < S && p < P;
+    cp_async16(vs + r * LDX + col,
+               val + (((size_t)b * S + (in ? t : 0)) * H + h) * P + (in ? p : 0), in);
+  }
+  if (threadIdx.x < Q) {
+    const int t = s0 + threadIdx.x;
+    const bool in = t < S;
+    cp_async4(dts + threadIdx.x, dt + ((size_t)b * S + (in ? t : 0)) * H + h, in);
+  }
+  cp_async_commit();
+}
+
+// A block: sequence b, head h, columns [PT x, PT x + PT); a warp: columns
+// 32 half + [0, 32) of the block's and state rows [w N/4, (w+1) N/4), as
+// mma accumulators.  hst and rst: [B, H, nc, N, P] f32.
+template <int N>
+__global__ void __launch_bounds__(ST_THREADS, N == 64 ? 2 : 1) ssd_scan_bwd_states_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const bf16* __restrict__ bm, const bf16* __restrict__ cm, const bf16* __restrict__ dy,
+    float* __restrict__ hst, float* __restrict__ rst, int S, int H, int P) {
+  using L = StLayout<N>;
+  constexpr int LDN = L::LDN, MT = N / 64, NP = 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int half = warp / 4, w = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int nrow0 = w * (N / 4), pc = half * 32;
+  const float ah2 = a[h] * LOG2E;
+  const int nc = (S + Q - 1) / Q;
+  const size_t plane = (size_t)N * P;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool rev = pass == 1;
+    const bf16* op = rev ? cm : bm;
+    const bf16* val = rev ? dy : x;
+    float* out = (rev ? rst : hst) + ((size_t)b * H + h) * nc * plane;
+    float st[MT][NP][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NP; ++n) st[mt][n][0] = st[mt][n][1] = st[mt][n][2] = st[mt][n][3] = 0.f;
+    st_load<N>(smem_raw, op, val, dt, b, h, p0, (rev ? nc - 1 : 0) * Q, S, H, P);
+    for (int it = 0; it < nc; ++it) {
+      const int kc = rev ? nc - 1 - it : it;
+      unsigned char* stage = smem_raw + (it & 1) * L::STAGE;
+      if (it + 1 < nc) {
+        st_load<N>(smem_raw + ((it + 1) & 1) * L::STAGE, op, val, dt, b, h, p0,
+                   (rev ? kc - 1 : kc + 1) * Q, S, H, P);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      float* cum = reinterpret_cast<float*>(stage + L::CUM);
+      float* sc = reinterpret_cast<float*>(stage + L::SC);
+      if (warp == 0) {   // prefix sums, and the operand's scales w_j or e_i
+        const float* dts = reinterpret_cast<const float*>(stage + L::DT);
+        const float2 c2 = chunk_cum2(dts, ah2, lane);
+        const float total = __shfl_sync(0xffffffffu, c2.y, 31);
+        *reinterpret_cast<float2*>(cum + 2 * lane) = c2;
+        *reinterpret_cast<float2*>(sc + 2 * lane) =
+            rev ? make_float2(clip_exp2(c2.x), clip_exp2(c2.y))
+                : make_float2(clip_exp2(total - c2.x) * dts[2 * lane],
+                              clip_exp2(total - c2.y) * dts[2 * lane + 1]);
+      }
+      __syncthreads();
+      // the state before this chunk (forward) or the gradient of the state
+      // after it (reverse), to scratch
+      float* o = out + (size_t)kc * plane;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          const int row = nrow0 + mt * 16 + g, col = p0 + pc + n * 8 + 2 * t4;
+          if (col < P) {
+            *reinterpret_cast<float2*>(o + (size_t)row * P + col) =
+                make_float2(st[mt][n][0], st[mt][n][1]);
+            *reinterpret_cast<float2*>(o + (size_t)(row + 8) * P + col) =
+                make_float2(st[mt][n][2], st[mt][n][3]);
+          }
+        }
+      if (it + 1 < nc) {   // carry: st exp(clip(T)) + (op ∘ sc)ᵀ · val
+        const bf16* os = reinterpret_cast<const bf16*>(stage + L::OP);
+        const bf16* vs = reinterpret_cast<const bf16*>(stage + L::VAL) + pc;
+        const float dtot = clip_exp2(cum[Q - 1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < NP; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[mt][n][e] *= dtot;
+#pragma unroll
+        for (int kk = 0; kk < Q / 16; ++kk) {
+          // the scales at steps 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4 (+1)
+          const float2 wa = *reinterpret_cast<const float2*>(sc + 16 * kk + 2 * t4);
+          const float2 wb = *reinterpret_cast<const float2*>(sc + 16 * kk + 8 + 2 * t4);
+          unsigned vf[NP / 2][4];
+#pragma unroll
+          for (int np = 0; np < NP / 2; ++np) frag_b2_t(vs, LDX, kk * 16, np * 16, vf[np]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            unsigned af[4];   // (op ∘ sc)ᵀ rows nrow0 + 16 mt .., steps 16 kk ..
+            frag_a_t(os, LDN, nrow0 + mt * 16, kk * 16, af);
+            af[0] = scale_bf16x2(af[0], wa.x, wa.y);
+            af[1] = scale_bf16x2(af[1], wa.x, wa.y);
+            af[2] = scale_bf16x2(af[2], wb.x, wb.y);
+            af[3] = scale_bf16x2(af[3], wb.x, wb.y);
+#pragma unroll
+            for (int np = 0; np < NP / 2; ++np) {
+              mma_bf16(st[mt][2 * np], af, vf[np][0], vf[np][1]);
+              mma_bf16(st[mt][2 * np + 1], af, vf[np][2], vf[np][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();   // every warp is done with this stage before it is refilled
+    }
+  }
+}
+
+// Shared memory of the chunk kernel (P rounded up to 16 for the k slices
+// over P; its rows padded by 16 bytes): x, dy [Q][kp + 8], b, c [Q][N + 8],
+// H, R [N][kp + 8] and the factors G∘L, dM∘L [Q][LDQ] (bf16), and 14
+// vectors of the chunk (f32): dt, cum, d_inter, dl_row, dsw, dw and dl_col
+// per warp (4 each), block sums.
+struct CgSmem {
+  int ldp;
+  size_t xs, dys, bs, cs, hs, rs, wg, ml, vec, bytes;
+  __host__ __device__ CgSmem(int N, int P) {
+    ldp = (P + 15) / 16 * 16 + 8;
+    const size_t ldn = N + 8;
+    xs = 0;
+    dys = xs + sizeof(bf16) * Q * ldp;
+    bs = dys + sizeof(bf16) * Q * ldp;
+    cs = bs + sizeof(bf16) * Q * ldn;
+    hs = cs + sizeof(bf16) * Q * ldn;
+    rs = hs + sizeof(bf16) * (size_t)N * ldp;
+    wg = rs + sizeof(bf16) * (size_t)N * ldp;
+    ml = wg + sizeof(bf16) * Q * LDQ;
+    vec = ml + sizeof(bf16) * Q * LDQ;
+    bytes = vec + sizeof(float) * 14 * Q;
+  }
+};
+
+template <int N>
+__global__ void __launch_bounds__(CG_THREADS) ssd_scan_bwd_chunk_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const bf16* __restrict__ bm, const bf16* __restrict__ cm, const float* __restrict__ d_skip,
+    const bf16* __restrict__ dy, const float* __restrict__ hst, const float* __restrict__ rst,
+    bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ db_part,
+    float* __restrict__ dc_part, float* __restrict__ sums, int B, int S, int H, int P) {
+  constexpr int LDN = N + 8, KN = N / 16, NN = N / 8;
+  const CgSmem L(N, P);
+  const int ldp = L.ldp, kp = ldp - 8;   // P rounded up to 16
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + L.xs);
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw + L.dys);
+  bf16* bs = reinterpret_cast<bf16*>(smem_raw + L.bs);
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw + L.cs);
+  bf16* hs = reinterpret_cast<bf16*>(smem_raw + L.hs);
+  bf16* rs = reinterpret_cast<bf16*>(smem_raw + L.rs);
+  bf16* wg = reinterpret_cast<bf16*>(smem_raw + L.wg);   // G∘L, rows i, columns j <= i
+  bf16* ml = reinterpret_cast<bf16*>(smem_raw + L.ml);   // dM∘L
+  float* dts = reinterpret_cast<float*>(smem_raw + L.vec);
+  float* cum = dts + Q;         // base 2
+  float* dinter = cum + Q;      // d(cum_i) of y_i's inter-chunk term
+  float* dlrow = dinter + Q;    // Σ_j dl_ij
+  float* dsw = dlrow + Q;       // b_j · (R x_j)
+  float* colw = dsw + Q;        // [4][Q] per warp: Σ_i dM_ij G_ij L_ij
+  float* coll = colw + 4 * Q;   // [4][Q] per warp: Σ_i dl_ij
+  float* red = coll + 4 * Q;    // block sums: <H, R> and Σ dy x per warp
+
+  const int kc = blockIdx.x, nc = gridDim.x, h = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t4 = lane % 4;
+  const int s0 = kc * Q, row0 = warp * 16;
+  const float ah = a[h], ah2 = ah * LOG2E, dh = d_skip != nullptr ? d_skip[h] : 0.f;
+
+  // ---- the chunk by cp.async (rows past S and columns past P zero)
+  {
+    const int XPR = kp / 8;
+    for (int i = tid; i < Q * XPR; i += CG_THREADS) {
+      const int r = i / XPR, col = (i - r * XPR) * 8, t = s0 + r;
+      const bool in = t < S && col < P;
+      const size_t o = (((size_t)bb * S + (in ? t : 0)) * H + h) * P + (in ? col : 0);
+      cp_async16(xs + r * ldp + col, x + o, in);
+      cp_async16(dys + r * ldp + col, dy + o, in);
+    }
+    constexpr int CPR = N / 8;
+    for (int i = tid; i < Q * CPR; i += CG_THREADS) {
+      const int r = i / CPR, col = (i - r * CPR) * 8, t = s0 + r;
+      const bool in = t < S;
+      const size_t o = ((size_t)bb * S + (in ? t : 0)) * N + col;
+      cp_async16(bs + r * LDN + col, bm + o, in);
+      cp_async16(cs + r * LDN + col, cm + o, in);
+    }
+    if (tid < Q) {
+      const int t = s0 + tid;
+      const bool in = t < S;
+      cp_async4(dts + tid, dt + ((size_t)bb * S + (in ? t : 0)) * H + h, in);
+    }
+    cp_async_commit();
+  }
+  // ---- H_k and R_k rounded to bf16 (columns past P zero), and <H, R> in f32
+  float hr = 0.f;
+  {
+    const size_t base = (((size_t)bb * H + h) * nc + kc) * (size_t)N * P;
+    const int PPR = kp / 4;
+    for (int i = tid; i < N * PPR; i += CG_THREADS) {
+      const int n = i / PPR, col = (i - n * PPR) * 4;
+      float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), rv = hv;
+      if (col < P) {
+        hv = *reinterpret_cast<const float4*>(hst + base + (size_t)n * P + col);
+        rv = *reinterpret_cast<const float4*>(rst + base + (size_t)n * P + col);
+      }
+      hr = fmaf(hv.x, rv.x, hr);
+      hr = fmaf(hv.y, rv.y, hr);
+      hr = fmaf(hv.z, rv.z, hr);
+      hr = fmaf(hv.w, rv.w, hr);
+      *reinterpret_cast<uint2*>(hs + n * ldp + col) =
+          make_uint2(pack_bf16(hv.x, hv.y), pack_bf16(hv.z, hv.w));
+      *reinterpret_cast<uint2*>(rs + n * ldp + col) =
+          make_uint2(pack_bf16(rv.x, rv.y), pack_bf16(rv.z, rv.w));
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // Σ dy x over the chunk (for dd), and the chunk's prefix sums
+  float dd = 0.f;
+  for (int i = tid; i < Q * (kp / 2); i += CG_THREADS) {
+    const int r = i / (kp / 2), c = (i - r * (kp / 2)) * 2;
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + r * ldp + c));
+    const float2 yv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dys + r * ldp + c));
+    dd = fmaf(yv.x, xv.x, dd);
+    dd = fmaf(yv.y, xv.y, dd);
+  }
+  hr = warp_sum(hr);
+  dd = warp_sum(dd);
+  if (lane == 0) {
+    red[warp] = hr;
+    red[4 + warp] = dd;
+  }
+  if (warp == 0) *reinterpret_cast<float2*>(cum + 2 * lane) = chunk_cum2(dts, ah2, lane);
+  __syncthreads();
+  const float T2 = cum[Q - 1];
+
+  // ---- 1. this warp's rows i = row0 + g (+8) as rows of G and dM
+  const int i0 = row0 + g, i1 = i0 + 8;
+  const float ci0 = cum[i0], ci1 = cum[i1];
+  unsigned cf[KN][4];   // C rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < KN; ++kk) frag_a(cs, LDN, row0, kk * 16, cf[kk]);
+  unsigned dgf[4][4];   // dM∘L∘dt, rounded, as A fragments per 16 columns j <= i
+  {
+    float gacc[8][4], macc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[n][e] = macc[n][e] = 0.f;
+    // G = C·Bᵀ and dM = dY·Xᵀ over the column tiles j <= i
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (np > warp) break;
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk) {
+        unsigned bf[4];
+        frag_b2(bs, LDN, np * 16, kk * 16, bf);
+        mma_bf16(gacc[2 * np], cf[kk], bf[0], bf[1]);
+        mma_bf16(gacc[2 * np + 1], cf[kk], bf[2], bf[3]);
+      }
+    }
+    for (int kk = 0; kk < kp / 16; ++kk) {
+      unsigned af[4];
+      frag_a(dys, ldp, row0, kk * 16, af);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (np > warp) break;
+        unsigned bf[4];
+        frag_b2(xs, ldp, np * 16, kk * 16, bf);
+        mma_bf16(macc[2 * np], af, bf[0], bf[1]);
+        mma_bf16(macc[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+    // the f32 elementwise terms: L, the factors, dw and dl (rows and columns)
+    float dlr0 = 0.f, dlr1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int j = 8 * n + 2 * t4;
+      float cw0 = 0.f, cw1 = 0.f, cl0 = 0.f, cl1 = 0.f;
+      if (n / 2 <= warp) {
+        const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+        const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+        float wv[4], mv[4], dv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = j + (e & 1), ii = e < 2 ? i0 : i1;
+          const float cjj = (e & 1) ? cj.y : cj.x, djj = (e & 1) ? dj.y : dj.x;
+          float wgt = 0.f, mlv = 0.f, dwv = 0.f, dlv = 0.f;
+          if (jj <= ii) {
+            const float diff = (e < 2 ? ci0 : ci1) - cjj;
+            const float l = clip_exp2(diff);
+            wgt = gacc[n][e] * l;
+            mlv = macc[n][e] * l;
+            dwv = macc[n][e] * wgt;
+            if (jj < ii && diff >= CLIP2) dlv = dwv * djj;
+          }
+          wv[e] = wgt;
+          mv[e] = mlv;
+          dv[e] = mlv * djj;
+          if (e < 2) dlr0 += dlv; else dlr1 += dlv;
+          if (e & 1) { cw1 += dwv; cl1 += dlv; } else { cw0 += dwv; cl0 += dlv; }
+        }
+        *reinterpret_cast<unsigned*>(wg + i0 * LDQ + j) = pack_bf16(wv[0], wv[1]);
+        *reinterpret_cast<unsigned*>(wg + i1 * LDQ + j) = pack_bf16(wv[2], wv[3]);
+        *reinterpret_cast<unsigned*>(ml + i0 * LDQ + j) = pack_bf16(mv[0], mv[1]);
+        *reinterpret_cast<unsigned*>(ml + i1 * LDQ + j) = pack_bf16(mv[2], mv[3]);
+        dgf[n / 2][(n % 2) * 2] = pack_bf16(dv[0], dv[1]);
+        dgf[n / 2][(n % 2) * 2 + 1] = pack_bf16(dv[2], dv[3]);
+      }
+      // columns j, j + 1 summed over this warp's 16 rows (the lanes of one t4)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        cw0 += __shfl_xor_sync(0xffffffffu, cw0, off);
+        cw1 += __shfl_xor_sync(0xffffffffu, cw1, off);
+        cl0 += __shfl_xor_sync(0xffffffffu, cl0, off);
+        cl1 += __shfl_xor_sync(0xffffffffu, cl1, off);
+      }
+      if (g == 0) {
+        *reinterpret_cast<float2*>(colw + warp * Q + j) = make_float2(cw0, cw1);
+        *reinterpret_cast<float2*>(coll + warp * Q + j) = make_float2(cl0, cl1);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      dlr0 += __shfl_xor_sync(0xffffffffu, dlr0, off);
+      dlr1 += __shfl_xor_sync(0xffffffffu, dlr1, off);
+    }
+    if (t4 == 0) {
+      dlrow[i0] = dlr0;
+      dlrow[i1] = dlr1;
+    }
+  }
+  const float e0 = clip_exp2(ci0), e1 = clip_exp2(ci1);
+  // dc_i = e_i (dY·Hᵀ)_i + Σ_{j<=i} (dM∘L∘dt)_ij b_j, to this head's part
+  {
+    float dca[NN][4];
+#pragma unroll
+    for (int n = 0; n < NN; ++n) dca[n][0] = dca[n][1] = dca[n][2] = dca[n][3] = 0.f;
+    for (int kk = 0; kk < kp / 16; ++kk) {
+      unsigned af[4];
+      frag_a(dys, ldp, row0, kk * 16, af);
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        unsigned bf[4];
+        frag_b2(hs, ldp, nb * 16, kk * 16, bf);
+        mma_bf16(dca[2 * nb], af, bf[0], bf[1]);
+        mma_bf16(dca[2 * nb + 1], af, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      dca[n][0] *= e0;
+      dca[n][1] *= e0;
+      dca[n][2] *= e1;
+      dca[n][3] *= e1;
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (np > warp) break;
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        unsigned bf[4];
+        frag_b2_t(bs, LDN, np * 16, nb * 16, bf);
+        mma_bf16(dca[2 * nb], dgf[np], bf[0], bf[1]);
+        mma_bf16(dca[2 * nb + 1], dgf[np], bf[2], bf[3]);
+      }
+    }
+    float* dcp = dc_part + ((size_t)bb * H + h) * S * N;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (s0 + i0 < S)
+        *reinterpret_cast<float2*>(dcp + (size_t)(s0 + i0) * N + col) =
+            make_float2(dca[n][0], dca[n][1]);
+      if (s0 + i1 < S)
+        *reinterpret_cast<float2*>(dcp + (size_t)(s0 + i1) * N + col) =
+            make_float2(dca[n][2], dca[n][3]);
+    }
+  }
+  // d(cum_i) += [cum_i >= -60] e_i Σ_p (C·H)_ip dy_ip
+  {
+    float di0 = 0.f, di1 = 0.f;
+    for (int pb = 0; pb < kp; pb += 64) {
+      float ch[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) ch[n][0] = ch[n][1] = ch[n][2] = ch[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (pb + np * 16 >= kp) break;
+          unsigned bf[4];
+          frag_b2_t(hs, ldp, kk * 16, pb + np * 16, bf);
+          mma_bf16(ch[2 * np], cf[kk], bf[0], bf[1]);
+          mma_bf16(ch[2 * np + 1], cf[kk], bf[2], bf[3]);
+        }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = pb + n * 8 + 2 * t4;
+        if (col < P) {
+          const float2 ya = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(dys + i0 * ldp + col));
+          const float2 yb = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(dys + i1 * ldp + col));
+          di0 = fmaf(ch[n][0], ya.x, fmaf(ch[n][1], ya.y, di0));
+          di1 = fmaf(ch[n][2], yb.x, fmaf(ch[n][3], yb.y, di1));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      di0 += __shfl_xor_sync(0xffffffffu, di0, off);
+      di1 += __shfl_xor_sync(0xffffffffu, di1, off);
+    }
+    if (t4 == 0) {
+      dinter[i0] = ci0 >= CLIP2 ? e0 * di0 : 0.f;
+      dinter[i1] = ci1 >= CLIP2 ? e1 * di1 : 0.f;
+    }
+  }
+  __syncthreads();   // G∘L and dM∘L of every row tile are in shared memory
+
+  // ---- 2. this warp's rows j = row0 + g (+8) as columns of G and dM
+  const int j0 = i0, j1 = i1;
+  const float ew0 = clip_exp2(T2 - cum[j0]), ew1 = clip_exp2(T2 - cum[j1]);
+  const float dt0 = dts[j0], dt1 = dts[j1];
+  // db_j = dt_j (exp(clip(T - cum_j)) (X·Rᵀ)_j + Σ_{i>=j} (dM∘L)_ij c_i),
+  // and dsw_j = b_j · (X·Rᵀ)_j
+  {
+    float dba[NN][4];
+#pragma unroll
+    for (int n = 0; n < NN; ++n) dba[n][0] = dba[n][1] = dba[n][2] = dba[n][3] = 0.f;
+    for (int kk = 0; kk < kp / 16; ++kk) {
+      unsigned af[4];
+      frag_a(xs, ldp, row0, kk * 16, af);
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        unsigned bf[4];
+        frag_b2(rs, ldp, nb * 16, kk * 16, bf);
+        mma_bf16(dba[2 * nb], af, bf[0], bf[1]);
+        mma_bf16(dba[2 * nb + 1], af, bf[2], bf[3]);
+      }
+    }
+    float s0v = 0.f, s1v = 0.f;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = n * 8 + 2 * t4;
+      const float2 ba = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bs + j0 * LDN + col));
+      const float2 bb2 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bs + j1 * LDN + col));
+      s0v = fmaf(dba[n][0], ba.x, fmaf(dba[n][1], ba.y, s0v));
+      s1v = fmaf(dba[n][2], bb2.x, fmaf(dba[n][3], bb2.y, s1v));
+      dba[n][0] *= ew0;
+      dba[n][1] *= ew0;
+      dba[n][2] *= ew1;
+      dba[n][3] *= ew1;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      s0v += __shfl_xor_sync(0xffffffffu, s0v, off);
+      s1v += __shfl_xor_sync(0xffffffffu, s1v, off);
+    }
+    if (t4 == 0) {
+      dsw[j0] = s0v;
+      dsw[j1] = s1v;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < warp) continue;
+      unsigned af[4];   // (dM∘L)ᵀ rows j, columns i of tile kk
+      frag_a_t(ml, LDQ, row0, kk * 16, af);
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) {
+        unsigned bf[4];
+        frag_b2_t(cs, LDN, kk * 16, nb * 16, bf);
+        mma_bf16(dba[2 * nb], af, bf[0], bf[1]);
+        mma_bf16(dba[2 * nb + 1], af, bf[2], bf[3]);
+      }
+    }
+    float* dbp = db_part + ((size_t)bb * H + h) * S * N;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (s0 + j0 < S)
+        *reinterpret_cast<float2*>(dbp + (size_t)(s0 + j0) * N + col) =
+            make_float2(dt0 * dba[n][0], dt0 * dba[n][1]);
+      if (s0 + j1 < S)
+        *reinterpret_cast<float2*>(dbp + (size_t)(s0 + j1) * N + col) =
+            make_float2(dt1 * dba[n][2], dt1 * dba[n][3]);
+    }
+  }
+  // dx_j = dt_j (exp(clip(T - cum_j)) (B·R)_j + Σ_{i>=j} (G∘L)_ij dy_i) + D dy_j
+  for (int pb = 0; pb < kp; pb += 64) {
+    float xa[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) xa[n][0] = xa[n][1] = xa[n][2] = xa[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KN; ++kk) {
+      unsigned af[4];
+      frag_a(bs, LDN, row0, kk * 16, af);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (pb + np * 16 >= kp) break;
+        unsigned bf[4];
+        frag_b2_t(rs, ldp, kk * 16, pb + np * 16, bf);
+        mma_bf16(xa[2 * np], af, bf[0], bf[1]);
+        mma_bf16(xa[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      xa[n][0] *= ew0;
+      xa[n][1] *= ew0;
+      xa[n][2] *= ew1;
+      xa[n][3] *= ew1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < warp) continue;
+      unsigned af[4];   // (G∘L)ᵀ rows j, columns i of tile kk
+      frag_a_t(wg, LDQ, row0, kk * 16, af);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (pb + np * 16 >= kp) break;
+        unsigned bf[4];
+        frag_b2_t(dys, ldp, kk * 16, pb + np * 16, bf);
+        mma_bf16(xa[2 * np], af, bf[0], bf[1]);
+        mma_bf16(xa[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = pb + n * 8 + 2 * t4;
+      if (col >= P) continue;
+      const float2 ya = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dys + j0 * ldp + col));
+      const float2 yb = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dys + j1 * ldp + col));
+      if (s0 + j0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(dx + (((size_t)bb * S + s0 + j0) * H + h) * P + col) =
+            __floats2bfloat162_rn(fmaf(dt0, xa[n][0], dh * ya.x), fmaf(dt0, xa[n][1], dh * ya.y));
+      if (s0 + j1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(dx + (((size_t)bb * S + s0 + j1) * H + h) * P + col) =
+            __floats2bfloat162_rn(fmaf(dt1, xa[n][2], dh * yb.x), fmaf(dt1, xa[n][3], dh * yb.y));
+    }
+  }
+  __syncthreads();   // dsw, dl_row, d_inter and the column sums are in shared memory
+
+  // ---- 3. d(cum), its prefix sum's reverse, ddt, and the chunk's da and dd (warp 0)
+  if (warp == 0) {
+    float dc2[2], ddt0[2], dgap[2], dtv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * lane + e;
+      const float dw = colw[r] + colw[Q + r] + colw[2 * Q + r] + colw[3 * Q + r];
+      const float dlc = coll[r] + coll[Q + r] + coll[2 * Q + r] + coll[3 * Q + r];
+      const float gap = T2 - cum[r], ew = clip_exp2(gap);
+      dtv[e] = dts[r];
+      dgap[e] = gap >= CLIP2 ? ew * dtv[e] * dsw[r] : 0.f;
+      dc2[e] = dinter[r] + dlrow[r] - dlc - dgap[e];
+      ddt0[e] = ew * dsw[r] + dw;
+    }
+    const float hrs = red[0] + red[1] + red[2] + red[3];
+    const float dds = red[4] + red[5] + red[6] + red[7];
+    // T = cum_{Q-1}: exp(clip(T)) H and every w_j
+    const float dtotal = (T2 >= CLIP2 ? clip_exp2(T2) * hrs : 0.f) + warp_sum(dgap[0] + dgap[1]);
+    if (lane == 31) dc2[1] += dtotal;
+    // suffix sums of d(cum): lanes from the last
+    float run = dc2[0] + dc2[1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_down_sync(0xffffffffu, run, off);
+      if (lane + off < 32) run += o;
+    }
+    const float after = __shfl_down_sync(0xffffffffu, run, 1);
+    const float suf1 = dc2[1] + (lane < 31 ? after : 0.f), suf0 = dc2[0] + suf1;
+    const float da = warp_sum(fmaf(suf0, dtv[0], suf1 * dtv[1]));
+    float* ddb = ddt + ((size_t)bb * S + s0) * H + h;
+    if (s0 + 2 * lane < S) ddb[(size_t)(2 * lane) * H] = fmaf(suf0, ah, ddt0[0]);
+    if (s0 + 2 * lane + 1 < S) ddb[(size_t)(2 * lane + 1) * H] = fmaf(suf1, ah, ddt0[1]);
+    if (lane == 0) {
+      sums[((size_t)bb * nc + kc) * H + h] = da;
+      sums[(((size_t)B + bb) * nc + kc) * H + h] = dds;
+    }
+  }
+}
+
+template <int N>
+int launch_bwd_bf16(const void* x, const void* dt, const void* a, const void* b, const void* c,
+                    const void* d_skip, const void* dy, void* dx, void* ddt, void* da, void* db,
+                    void* dc, void* dd, void* states, void* db_part, void* dc_part, void* sums,
+                    int B, int S, int H, int P, void* stream) {
+  const size_t st_smem = StLayout<N>::BYTES, cg_smem = CgSmem(N, P).bytes;
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_states_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)st_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ssd_scan_bwd_chunk_kernel<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cg_smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nc = (S + Q - 1) / Q;
+  float* hst = (float*)states;
+  float* rst = hst + (size_t)B * H * nc * N * P;
+  ssd_scan_bwd_states_kernel<N><<<dim3((P + PT - 1) / PT, H, B), ST_THREADS, st_smem, st>>>(
+      (const bf16*)x, (const float*)dt, (const float*)a, (const bf16*)b, (const bf16*)c,
+      (const bf16*)dy, hst, rst, S, H, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_bwd_chunk_kernel<N><<<dim3(nc, H, B), CG_THREADS, cg_smem, st>>>(
+      (const bf16*)x, (const float*)dt, (const float*)a, (const bf16*)b, (const bf16*)c,
+      (const float*)d_skip, (const bf16*)dy, hst, rst, (bf16*)dx, (float*)ddt,
+      (float*)db_part, (float*)dc_part, (float*)sums, B, S, H, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = std::max((long long)B * S * N, (long long)H);
+  ssd_scan_bwd_reduce_kernel<bf16><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      (const float*)db_part, (const float*)dc_part, (const float*)sums, (bf16*)db, (bf16*)dc,
+      (float*)da, (float*)dd, B, S, H, N, B * nc);
   return (int)cudaGetLastError();
 }
 
@@ -1036,6 +1751,13 @@ extern "C" int ssd_scan_bwd_bf16(const void* x, const void* dt, const void* a, c
                                  void* ddt, void* da, void* db, void* dc, void* dd,
                                  void* states, void* db_part, void* dc_part, void* sums, int B,
                                  int S, int H, int P, int N, void* stream) {
-  return launch_bwd<bf16>(x, dt, a, b, c, d_skip, dy, dx, ddt, da, db, dc, dd, states, db_part,
-                          dc_part, sums, B, S, H, P, N, stream);
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % 8 != 0 || H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (N == 64)
+    return launch_bwd_bf16<64>(x, dt, a, b, c, d_skip, dy, dx, ddt, da, db, dc, dd, states,
+                               db_part, dc_part, sums, B, S, H, P, stream);
+  if (N == 128)
+    return launch_bwd_bf16<128>(x, dt, a, b, c, d_skip, dy, dx, ddt, da, db, dc, dd, states,
+                                db_part, dc_part, sums, B, S, H, P, stream);
+  return (int)cudaErrorInvalidValue;
 }

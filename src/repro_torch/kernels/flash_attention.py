@@ -83,11 +83,16 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
     [B, Hq, Sq] f32 that :func:`flash_attention_cuda` saved.  One C call:
     ``delta = rowsum(dout * out)``, then dk and dv (a block per key tile,
     summing over the kv head's q heads in order), then dq; no atomics, so
-    two calls give the same bits."""
+    two calls give the same bits.  float32 runs the CUDA-core kernels;
+    bfloat16 the tensor-core ones, whose roundings
+    ``ref.flash_attention_bwd_mma_ref`` models, with q, k, v and dout on
+    16-byte boundaries."""
     bsz, hq, hkv, sq, sk, dh = _check_qkv(q, k, v, window)
     check_tensor(out, "out", (q.dtype,), q.shape, q.device)
     check_tensor(dout, "dout", (q.dtype,), q.shape, q.device)
     check_tensor(lse, "lse", (torch.float32,), (bsz, hq, sq), q.device)
+    if q.dtype == torch.bfloat16:   # the tensor-core kernels' 16-byte copies
+        check_aligned("flash_attention_bwd", q, k, v, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

@@ -444,6 +444,49 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_mma_ref(q, k, v, out, dout, lse, causal=True, window=None):
+    """The bf16 flash_attention backward kernels' own arithmetic: the closed
+    form of :func:`flash_attention_bwd_ref` with p taken in base 2
+    (exp2(s·scale·log2 e − lse·log2 e), a dead row's exp2(−lse·log2 e)) and,
+    for bf16 inputs, p and ds rounded to bf16 where the kernels feed them to
+    their tensor-core products (dv = pᵀ dout; dk = scale dsᵀ q and dq =
+    scale ds k), every sum in f32 and the outputs rounded once.  With f32
+    inputs nothing is rounded (f64 inputs are taken in f64).  Used by the
+    tests and ``chip_smoke.py`` only, to keep the kernels' roundings
+    testable without the card, as :func:`ssd_scan_mma_ref` for the scan's
+    forward.  Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = dh ** -0.5
+    valid, dead = _attn_masks(sq, sk, causal, window, q.device)
+    f32 = _acc_dtype(q.dtype)
+    if q.dtype == torch.bfloat16:
+        def rounded(t):
+            return t.to(torch.bfloat16).float()
+    else:
+        def rounded(t):
+            return t
+    delta = (dout.to(f32) * out.to(f32)).sum(-1)                      # [B, Hq, Sq]
+    lse2 = lse.to(f32) * _LOG2E
+    dq = torch.empty(q.shape, dtype=f32, device=q.device)
+    dk = torch.empty(k.shape, dtype=f32, device=q.device)
+    dv = torch.empty(v.shape, dtype=f32, device=q.device)
+    for g in range(hkv):
+        hs = slice(g * rep, (g + 1) * rep)
+        qg, kg, vg, dog = q[:, hs].to(f32), k[:, g].to(f32), v[:, g].to(f32), dout[:, hs].to(f32)
+        l2 = lse2[:, hs, :, None]
+        p = torch.exp2(torch.einsum("brqd,bkd->brqk", qg, kg) * (scale * _LOG2E) - l2)
+        p = torch.where(valid, p, torch.where(dead[:, None], torch.exp2(-l2), 0.0))
+        dp = torch.einsum("brqd,bkd->brqk", dog, vg)
+        ds = rounded(torch.where(valid, p * (dp - delta[:, hs, :, None]), 0.0))
+        p = rounded(p)
+        dq[:, hs] = torch.einsum("brqk,bkd->brqd", ds, kg) * scale
+        dk[:, g] = torch.einsum("brqk,brqd->bkd", ds, qg) * scale
+        dv[:, g] = torch.einsum("brqk,brqd->bkd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality) scan
 # ---------------------------------------------------------------------------
@@ -705,3 +748,111 @@ def ssd_scan_bwd_ref(x, dt, a, b, c, d_skip, dy, chunk: int = 64):
 
     return (unchunk(dx, x), unchunk(ddt, dt), da.to(a.dtype), unchunk(db, b), unchunk(dc, c),
             None if dd is None else dd.to(d_skip.dtype))
+
+
+def ssd_scan_bwd_mma_ref(x, dt, a, b, c, d_skip, dy, chunk: int = 64):
+    """The bf16 ssd_scan backward kernels' own arithmetic: the closed form
+    of :func:`ssd_scan_bwd_ref` in the kernels' chunk-parallel
+    decomposition, with exponents in base 2 (as :func:`ssd_scan_mma_ref`)
+    and, for bf16 inputs, values rounded to bf16 exactly where the kernels
+    feed them to their tensor-core products, every sum in f32.  Used by the
+    tests and ``chip_smoke.py`` only.
+
+    First the states, as the states kernel carries them in f32: H_k, the
+    state before chunk k (H_0 = 0, H_{k+1} = exp(clip(T_k)) H_k + Σ_j
+    rnd(b_j w_j) ⊗ x_j), and R_k, the gradient of H_{k+1} (R_{nc-1} = 0,
+    R_{k-1} = exp(clip(T_k)) R_k + Σ_i rnd(c_i e_i) ⊗ dy_i).  Then each
+    chunk's gradients from rnd(H_k) and rnd(R_k) and the rounded factors
+    rnd(G∘L) (for dx), rnd(dM∘L) (db) and rnd(dM∘L∘dt) (dc); L, the clip
+    masks, dw, dl's row and column sums, <H_k, R_k> (unrounded), d(cum)
+    and its prefix sum's reverse stay f32.  dx, db and dc are rounded once
+    at the end (db and dc after their sum over the heads).  With f32 inputs
+    nothing is rounded (and f64 inputs are taken in f64).  Returns (dx,
+    ddt, da, db, dc, dd) as :func:`ssd_scan_bwd_ref`."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = chunk
+    nc = -(-s // q)
+    pad = nc * q - s
+    f32 = _acc_dtype(x.dtype)
+    if x.dtype == torch.bfloat16:
+        def rounded(t):
+            return t.to(torch.bfloat16).float()
+    else:
+        def rounded(t):
+            return t
+    clip2 = -60.0 * _LOG2E
+
+    def clip_exp2(v):
+        return torch.exp2(v.clamp(clip2, 0.0))
+
+    def chunks(t, *tail):
+        return F.pad(t.to(f32), (0, 0) * len(tail) + (0, pad)).reshape(bsz, nc, q, *tail)
+
+    xc, dyc = chunks(x, h, p), chunks(dy, h, p)
+    bc, cc = chunks(b, n), chunks(c, n)
+    dtc = F.pad(dt.to(f32), (0, 0, 0, pad)).reshape(bsz, nc, q, h)
+    af = a.to(f32)
+    cum = torch.cumsum(dtc * (af * _LOG2E), dim=2)                    # [B,nc,Q,H], base 2
+    total = cum[:, :, -1]                                             # [B,nc,H]
+    e_in, e_t = clip_exp2(cum), clip_exp2(total)
+    gap = total[:, :, None] - cum
+    e_w = clip_exp2(gap)
+    w = e_w * dtc
+
+    # the states kernel: H_k forward and R_k in reverse, carried in f32
+    s_loc = torch.einsum("bkjnh,bkjhp->bkhnp", rounded(bc[..., None] * w[:, :, :, None]), xc)
+    r_loc = torch.einsum("bkinh,bkihp->bkhnp", rounded(cc[..., None] * e_in[:, :, :, None]),
+                         dyc)
+    zero = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+    hs, rs = [], [None] * nc
+    carry = zero
+    for k in range(nc):
+        hs.append(carry)
+        carry = carry * e_t[:, k, :, None, None] + s_loc[:, k]
+    carry = zero
+    for k in reversed(range(nc)):
+        rs[k] = carry
+        carry = carry * e_t[:, k, :, None, None] + r_loc[:, k]
+    hst, rst = torch.stack(hs, 1), torch.stack(rs, 1)                 # [B,nc,H,N,P]
+    hb, rb = rounded(hst), rounded(rst)
+
+    # the chunk kernel
+    g = torch.einsum("bkin,bkjn->bkij", cc, bc)                       # [B,nc,Qi,Qj]
+    dm = torch.einsum("bkihp,bkjhp->bkijh", dyc, xc)                  # [B,nc,Qi,Qj,H]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))[None, None, :, :, None]
+    strict = ~torch.eye(q, dtype=torch.bool, device=x.device)[None, None, :, :, None]
+    ell = torch.where(tri, clip_exp2(diff), 0.0)
+    wgt = g[..., None] * ell                                          # G∘L
+    mlf = dm * ell                                                    # dM∘L
+    dw = (dm * wgt).sum(2)                                            # [B,nc,Qj,H]
+    dl = torch.where(tri & strict & (diff >= clip2), dm * wgt * dtc[:, :, None], 0.0)
+    dc = (torch.einsum("bkihp,bkhnp->bkihn", dyc, hb) * e_in[..., None]
+          + torch.einsum("bkijh,bkjn->bkihn", rounded(mlf * dtc[:, :, None]), bc))
+    ch = torch.einsum("bkin,bkhnp->bkihp", cc, hb)
+    d_inter = torch.where(cum >= clip2, e_in * (ch * dyc).sum(-1), 0.0)
+    rx = torch.einsum("bkjhp,bkhnp->bkjhn", xc, rb)                   # X·Rᵀ
+    dsw = torch.einsum("bkjhn,bkjn->bkjh", rx, bc)
+    db = dtc[..., None] * (e_w[..., None] * rx
+                           + torch.einsum("bkijh,bkin->bkjhn", rounded(mlf), cc))
+    dx = dtc[..., None] * (e_w[..., None] * torch.einsum("bkjn,bkhnp->bkjhp", bc, rb)
+                           + torch.einsum("bkijh,bkihp->bkjhp", rounded(wgt), dyc))
+    dd = None
+    if d_skip is not None:
+        dx = dx + dyc * d_skip.to(f32)[:, None]
+        dd = (dyc * xc).sum((0, 1, 2, 4))
+    d_gap = torch.where(gap >= clip2, w * dsw, 0.0)
+    d_total = (torch.where(total >= clip2, e_t * (hst * rst).sum((-1, -2)), 0.0)
+               + d_gap.sum(2))
+    dcum = d_inter + dl.sum(3) - dl.sum(2) - d_gap
+    dcum[:, :, -1] += d_total
+    suffix = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = e_w * dsw + dw + suffix * af
+    da = (suffix * dtc).sum((0, 1, 2))
+
+    def unchunk(t, like):
+        return t.reshape(bsz, nc * q, *t.shape[3:])[:, :s].to(like.dtype)
+
+    return (unchunk(dx, x), unchunk(ddt, dt), da.to(a.dtype), unchunk(db.sum(3), b),
+            unchunk(dc.sum(3), c), None if dd is None else dd.to(d_skip.dtype))

@@ -76,29 +76,56 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def bwd_smem_bytes(n: int, p: int) -> int:
-    """Shared memory of one backward block: x, dy (rows of P + 1), b, c
-    (rows of N + 1), the state and its gradient (N rows of P + 1), two
-    chunk-square matrices (rows of 65) and six vectors of the chunk, f32."""
+    """Shared memory of one f32 backward block, as its launcher asks: x, dy
+    (rows of P + 1), b, c (rows of N + 1), the state and its gradient (N
+    rows of P + 1), three chunk-square matrices (rows of 65) and eight
+    vectors of the chunk, f32."""
     q = CHUNK
-    return 4 * (2 * q * (p + 1) + 2 * q * (n + 1) + 2 * n * (p + 1) + 2 * q * (q + 1) + 6 * q)
+    return 4 * (2 * q * (p + 1) + 2 * q * (n + 1) + 2 * n * (p + 1) + 3 * q * (q + 1) + 8 * q)
+
+
+def bwd_mma_smem_bytes(n: int, p: int) -> int:
+    """Shared memory the bf16 backward asks for, the larger of its two
+    blocks' (``csrc/ssd_scan.cu``: ``StLayout``, ``CgSmem``): the states
+    block's two stages of b or c (rows of N + 8), x or dy (rows of 72, bf16)
+    and three f32 vectors; the chunk block's x, dy (rows of P rounded up to
+    16, + 8), b, c (rows of N + 8), H, R (N rows as x's) and two chunk-square
+    factors (rows of 72), bf16, and 14 f32 vectors of the chunk."""
+    q = CHUNK
+    states = 2 * (2 * q * (n + 8) + 2 * q * 72 + 4 * 3 * q)
+    ldp = -(-p // 16) * 16 + 8
+    chunk = 2 * (2 * q * ldp + 2 * q * (n + 8) + 2 * n * ldp + 2 * q * (q + 8)) + 4 * 14 * q
+    return max(states, chunk)
 
 
 def ssd_scan_bwd_cuda(x, dt, a, b, c, d_skip, dy):
     """Launch the backward kernel: (dx, ddt, da, db, dc, dd) of the scan in
     the dtypes of its inputs (dd None without ``d_skip``), from its inputs
-    (as :func:`ssd_scan_cuda` takes them, f32 or bf16, any N and P that fit
-    a block's shared memory) and the output's gradient ``dy`` [B, S, H, P]
-    in x's dtype.  One C call: a block per (head, sequence) recomputes the
+    (as :func:`ssd_scan_cuda` takes them) and the output's gradient ``dy``
+    [B, S, H, P] in x's dtype.  One C call; no atomics, so two calls give
+    the same bits.  float32 (any N and P whose block fits shared memory,
+    :func:`bwd_smem_bytes`): a block per (head, sequence) recomputes the
     state before each chunk of 64 (into scratch), then walks the chunks in
-    reverse; db and dc (shared by the heads) and da and dd (shared by the
-    sequences) are written per head or sequence and summed by a second
-    kernel in a fixed order.  No atomics: two calls give the same bits."""
+    reverse on the CUDA cores.  bfloat16 (N in (64, 128), P a multiple of 8
+    within :func:`bwd_mma_smem_bytes`, x, b, c and dy on 16-byte
+    boundaries): the state before each chunk and the state's gradient after
+    it (into scratch), then a block per (chunk, head, sequence) on the
+    tensor cores, whose roundings ``ref.ssd_scan_bwd_mma_ref`` models.  db
+    and dc (shared by the heads) and da and dd (shared by the sequences)
+    are written per head or per sequence (bf16: per (sequence, chunk)) and
+    summed by a last kernel in a fixed order."""
     bsz, s, h, p, n = _check_inputs(x, dt, a, b, c, d_skip)
     check_tensor(dy, "dy", (x.dtype,), x.shape, x.device)
-    if bwd_smem_bytes(n, p) > SMEM_OPTIN:
-        raise ValueError(f"the ssd_scan backward kernel holds N={n}, P={p} in "
-                         f"{bwd_smem_bytes(n, p)} bytes of shared memory, more than "
-                         f"{SMEM_OPTIN}")
+    mma = x.dtype == torch.bfloat16
+    if mma:
+        if n not in _BF16_N or p % 8:
+            raise ValueError(f"the bf16 ssd_scan backward kernel takes N in {_BF16_N} and P a "
+                             f"multiple of 8, got N={n}, P={p}")
+        check_aligned("ssd_scan_bwd", x, b, c, dy)
+    smem = (bwd_mma_smem_bytes if mma else bwd_smem_bytes)(n, p)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"the ssd_scan backward kernel holds N={n}, P={p} in {smem} bytes "
+                         f"of shared memory, more than {SMEM_OPTIN}")
     dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
     da = torch.empty_like(a)
     dd = None if d_skip is None else torch.empty_like(d_skip)
@@ -108,9 +135,11 @@ def ssd_scan_bwd_cuda(x, dt, a, b, c, d_skip, dy):
         return dx, ddt, da, db, dc, dd
     nc = -(-s // CHUNK)
     f32 = dict(dtype=torch.float32, device=x.device)
-    states = torch.empty((bsz, h, nc, n, p), **f32)
+    # the state before each chunk (bf16: and the state's gradient after it)
+    states = torch.empty((2,) * mma + (bsz, h, nc, n, p), **f32)
     db_part, dc_part = torch.empty((bsz, h, s, n), **f32), torch.empty((bsz, h, s, n), **f32)
-    sums = torch.empty((2, bsz, h), **f32)          # da and dd per sequence and head
+    # da and dd per sequence (bf16: per sequence and chunk) and head
+    sums = torch.empty((2, bsz) + (nc,) * mma + (h,), **f32)
     lib = load_library().lib
     fn = lib.ssd_scan_bwd_f32 if x.dtype == torch.float32 else lib.ssd_scan_bwd_bf16
     with torch.cuda.device(x.device):
