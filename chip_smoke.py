@@ -232,6 +232,12 @@ ZOO_TRAIN_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "mamba2-370m", "zamba
 ZOO_STEP_LOSS_RTOL = 1e-5    # one zoo train step, card against host: the loss
 ZOO_STEP_LEAF_TOL = 1e-4     # ... each gradient leaf, of its scale, beyond the host's f32 error
 ZOO_STEP_FULL_SEQ = 128      # zamba2 at full width, one superblock: B=1, two SSD chunks
+# the dry-run tools (launch.dryrun): the records of these two configurations
+# at full width and depth on the 16x16 fake mesh, computed in this many
+# spawned processes after the card has run the same step builders
+DRYRUN_ARCHS = ("granite-3-2b", "zamba2-1.2b")
+DRYRUN_WORKERS = 6
+H100_PEAK_BF16 = 989.4e12    # dense bf16 FLOP/s, NVIDIA data sheet (launch.mesh)
 QUICK_TIME_MS = 2.0          # calls slower than this are timed over a few plain calls
 STREAM_RATE = 400.0          # checkout events per virtual second
 STREAM_CHECK_EVENTS = 2000   # the stream's first events, replayed by every check
@@ -2246,6 +2252,251 @@ def zoo_train_phase(dev) -> dict:
                 seconds=seconds)
 
 
+def _dryrun_records(pool_result) -> list:
+    """The dry-run's 16x16 records (from the spawned processes), printed."""
+    records = pool_result.get(timeout=900)
+    for rec in records:
+        if rec["status"] == "skip":
+            print(f"dryrun {rec['arch']} {rec['shape']} 16x16: skipped ({rec['reason']})")
+            continue
+        coll = rec["coll_detail"]
+        kinds = ", ".join(f"{k} {coll['counts'][k]}x {coll['bytes'][k] / 1e9:.3f} GB"
+                          for k in coll["bytes"] if coll["counts"][k])
+        print(f"dryrun {rec['arch']} {rec['shape']} 16x16 (the dry-run's model, on the "
+              f"host CPU; H100 constants): {rec['hlo_gflops'] / 1e6:.3f} PFLOP, "
+              f"{rec['hlo_gbytes'] / 1e3:.3f} TB unfused, collectives per card "
+              f"{kinds or 'none'}, per-device arguments "
+              f"{rec['bytes_per_device']['argument_size_in_bytes'] / 2**30:.3f} GiB; "
+              f"t_compute {rec['t_compute'] * 1e3:.3f} ms, t_memory {rec['t_memory'] * 1e3:.3f} "
+              f"ms, t_collective {rec['t_collective'] * 1e3:.3f} ms -> {rec['bottleneck']} "
+              f"(traced in {rec['t_trace_s']:.1f} s)")
+    return records
+
+
+def _host_record(cfg, shape, **kw) -> dict:
+    """The dry-run's record of ``cfg``'s step on the one-device meta mesh
+    (the card's shapes): its cost and per-device bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import analyze
+
+    cost, mem, _ = dryrun.count_step(cfg, make_host_mesh("meta"), shape, **kw)
+    rec = analyze(cfg, shape, "host", 1, cost, memory_stats=mem)
+    return {"t_compute": rec.t_compute, "model_flops": rec.model_gflops * 1e9,
+            "flops": cost["flops"], "args_bytes": mem["argument_size_in_bytes"]}
+
+
+def _dryrun_card_row(name, host, args, seconds, steps, card, launches) -> dict:
+    """One card run of a step builder beside its dry-run: the argument bytes
+    (exactly), the measured time against t_compute and the model FLOPs."""
+    from repro_torch.params import tree_leaves
+
+    allocated = sum(t.numel() * t.element_size() for t in tree_leaves(list(args))
+                    if isinstance(t, torch.Tensor))
+    if allocated != host["args_bytes"]:
+        raise AssertionError(f"dryrun {name}: the dry-run's arguments are {host['args_bytes']} "
+                             f"bytes, the card's tensors {allocated}")
+    per_step = seconds / steps
+    mfu = host["model_flops"] / (per_step * H100_PEAK_BF16)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"dryrun host {name}: arguments {allocated} B on the card = {host['args_bytes']} B in "
+          f"the dry-run (max_memory_allocated {peak / 2**30:.2f} GiB); the dry-run's t_compute "
+          f"{host['t_compute'] * 1e3:.3f} ms, measured {per_step * 1e3:.3f} ms a step, "
+          f"model_flops / (measured x 989.4e12) = {mfu:.4f} on {card}; launches {launches}")
+    return dict(args_bytes=allocated, dryrun_args_bytes=host["args_bytes"],
+                peak_bytes=peak, t_compute_ms=host["t_compute"] * 1e3,
+                measured_ms=per_step * 1e3, model_flops=host["model_flops"],
+                counted_flops=host["flops"], mfu=mfu, launches=launches)
+
+
+def _equal_trees(a, b, what: str) -> None:
+    from repro_torch.params import tree_leaves
+
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        if not same:
+            raise AssertionError(f"dryrun {what}: not bit for bit")
+
+
+def _grow_cache(cfg, cache, batch: int, max_len: int, dev):
+    """A prefill's cache of the prompt's length copied into a zero cache of
+    ``max_len`` slots, as ``prefill`` merges its own."""
+    from repro_torch.models import init_cache
+    from repro_torch.params import tree_map
+
+    def one(dst, src):
+        if dst.shape == src.shape:
+            return src
+        dst[..., :src.shape[-2], :] = src
+        return dst
+
+    full = init_cache(cfg, batch, max_len, device=dev)
+    return {k: v if k == "pos" else tree_map(one, full[k], v) for k, v in cache.items()}
+
+
+def dryrun_phase(dev) -> dict:
+    """The zoo's dry-run tools (``repro_torch.launch.{mesh,steps,roofline,
+    dryrun}``).  On the card, the step builders over the one-device host
+    mesh (``make_step``): granite-3-2b's prefill of 4 x 512 and 32 decode
+    steps, and zamba2-1.2b's train step at 4 x 512, each bit for bit
+    against the one-card entry points on the same inputs (``serve()``, as
+    ``serve_row`` runs it, ``prefill``/``decode_step``, and
+    ``make_train_step`` as ``zoo_train_phase``'s ``train_arch`` builds it),
+    with exact launch counts; each beside the dry-run's record of the same
+    step on the one-device mesh: argument bytes equal to the card's
+    tensors' exactly, and its t_compute beside the measured time.  Then,
+    in DRYRUN_WORKERS spawned processes (the dry-run uses no device; this
+    machine is only where it runs), the records of granite-3-2b and
+    zamba2-1.2b at all four shapes on the 16x16 fake mesh, at full width
+    and depth."""
+    import functools
+    import logging
+    import multiprocessing
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.launch.steps import make_step, make_train_step
+    from repro_torch.launch.train import arch_batch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.config import INPUT_SHAPES, InputShape
+    from repro_torch.train.optim import adamw
+
+    t0 = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    rows = {}
+    mesh = make_host_mesh(dev)
+
+    # granite-3-2b: prefill 4 x 512, then 32 greedy decode steps
+    cfg = get_config("granite-3-2b")
+    b, s, t = ZOO_BATCH, ZOO_SEQ, ZOO_TOKENS
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    prompts, extra = serve_inputs(cfg, b, s, 0, device=dev)
+    p_shape, d_shape = InputShape("prefill", s, b, "prefill"), InputShape("decode", s + t, b,
+                                                                          "decode")
+    prefill_fn, _ = make_step(cfg, mesh, p_shape)
+    serve_fn, _ = make_step(cfg, mesh, d_shape)
+    # the step's token ids are int32, as the reference's specs (serve() takes
+    # the int64 draws; the embedding lookup reads either alike)
+    batch = {"tokens": prompts.to(torch.int32), **extra}
+    prefill_fn(params, batch)            # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    logits, cache = prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != {"flash_attention": cfg.num_layers}:
+        raise AssertionError(f"dryrun granite prefill: launches {launches}")
+    rows["granite_prefill"] = _dryrun_card_row(
+        f"granite-3-2b prefill B={b} S={s}", _host_record(cfg, p_shape),
+        (params, batch), prefill_s, 1, card, launches)
+    with torch.no_grad():
+        want_logits, want_cache = prefill(params, cfg, prompts, s + t, extra)
+    _equal_trees(logits, want_logits, "granite prefill logits")
+    cache = _grow_cache(cfg, cache, b, s + t, dev)
+    _equal_trees(cache, want_cache, "granite prefill cache")
+    tok = logits.argmax(-1).to(torch.int32)
+    dec_args, ids, steps, step_s = (params, tok, cache), [tok], [], 0.0
+    _build.reset_launches()
+    for _ in range(t):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = serve_fn(params, tok, cache)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t1
+        tok = logits.argmax(-1).to(torch.int32)
+        steps.append(logits)
+        ids.append(tok)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != {"gqa_decode": cfg.num_layers * t}:
+        raise AssertionError(f"dryrun granite decode: launches {launches}")
+    want_tok = want_logits.argmax(-1)
+    with torch.no_grad():
+        for i in range(t):
+            want_logits, want_cache = decode_step(params, cfg, want_tok, want_cache)
+            _equal_trees(steps[i], want_logits, f"granite decode step {i} logits")
+            want_tok = want_logits.argmax(-1)
+    _equal_trees(cache, want_cache, "granite decode cache")
+    served = serve(cfg, b, s, t, seed=0, device=dev)
+    if not torch.equal(torch.stack(ids, 1).cpu().long(), served["token_ids"]):
+        raise AssertionError("dryrun granite: token ids differ from serve()'s")
+    rows["granite_decode"] = _dryrun_card_row(
+        f"granite-3-2b decode B={b} over {s + t} slots, {t} steps",
+        _host_record(cfg, d_shape), dec_args, step_s, t, card, launches)
+    del params, cache, want_cache, dec_args, served, steps
+    torch.cuda.empty_cache()
+
+    # zamba2-1.2b: one train step at 4 x 512, as the zoo-train phase's
+    cfg = get_config(ZOO_ARCH)
+    shape = InputShape("train", s, b, "train")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    opt = adamw(3e-4)[0](params)
+    batch = arch_batch(cfg, b, s, np.random.default_rng(0), dev)
+    train_fn, _ = make_step(cfg, mesh, shape, use_remat=False)
+    # the steps with PyTorch's deterministic algorithms (the embedding's
+    # gradient sums repeated token rows), so that two runs can agree bit
+    # for bit; the hand-written kernels have no atomics either way
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    train_fn(params, opt, batch)         # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    got = train_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    n_attn = cfg.num_layers // cfg.attn_every
+    if launches != {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
+                    "ssd_scan": cfg.num_layers, "ssd_scan_bwd": cfg.num_layers}:
+        raise AssertionError(f"dryrun zamba2 train: launches {launches}")
+    rows["zamba2_train"] = _dryrun_card_row(
+        f"zamba2-1.2b train B={b} S={s}", _host_record(cfg, shape, use_remat=False),
+        (params, opt, batch), train_s, 1, card, launches)
+    want = make_train_step(cfg, use_remat=False, lr=3e-4)(params, opt, batch)
+    torch.use_deterministic_algorithms(deterministic)
+    _equal_trees(got, want, "zamba2 train step")
+    print(f"dryrun host: the three steps through make_step equal the one-card entry "
+          f"points bit for bit (zamba2 loss {float(got[2]['loss']):.6f})")
+    del params, opt, got, want
+    torch.cuda.empty_cache()
+
+    # the 16x16 records, after the card's runs (whose host clocks the
+    # processes would otherwise share), the longest first
+    order = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    tasks = [(arch, shape, "single") for shape in order for arch in DRYRUN_ARCHS]
+    pool = multiprocessing.get_context("spawn").Pool(
+        DRYRUN_WORKERS, initializer=logging.disable, initargs=(logging.WARNING,))
+    try:
+        records = _dryrun_records(pool.starmap_async(
+            functools.partial(dryrun.run_one, save=False, extrapolate=False), tasks))
+    finally:
+        pool.close()
+        pool.join()
+    # granite-3-2b is pure full attention: long_500k is skipped, as the reference's
+    status = {(r["arch"], r["shape"]): r["status"] for r in records}
+    if status != {task[:2]: "skip" if task[:2] == ("granite-3-2b", "long_500k") else "ok"
+                  for task in tasks}:
+        raise AssertionError(f"dryrun: records {status}")
+    launches = {}
+    for row in rows.values():
+        for name, c in row["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    seconds = time.perf_counter() - t0
+    print(f"dryrun phase: {seconds:.1f} s")
+    return dict(records=records, card=rows, launches=launches, seconds=seconds,
+                shapes=list(INPUT_SHAPES))
+
+
 def _timed(obj, name: str, log: list) -> None:
     """Wrap ``obj.name`` so that each call appends its host-clock seconds to
     ``log`` (two clock reads a call)."""
@@ -4144,6 +4395,9 @@ def main() -> int:
     if "--zoo-grad-kernels" in sys.argv[1:]:
         zoo_grad_kernel_checks(dev)
         return 0
+    if "--dryrun" in sys.argv[1:]:
+        dryrun_phase(dev)
+        return 0
 
     # ----------------------------------------------------------------- data
     t0 = time.perf_counter()
@@ -4314,6 +4568,12 @@ def main() -> int:
     results.update(zoo_train["kernels"])
     print("zoo_train: " + json.dumps({k: v for k, v in zoo_train.items() if k != "kernels"}))
 
+    # -------------------------------------------------- 15. the dry-run tools
+    dry = dryrun_phase(dev)
+    for name, c in dry["launches"].items():
+        launches[name] += c
+    print("dryrun: " + json.dumps({k: v for k, v in dry.items() if k != "records"}))
+
     # ------------------------------------------------------- 10. kernel line
     def pick(name, shape_prefix, shape_suffix=""):
         return next(c for c in results[name] if c["shape"].startswith(shape_prefix)
@@ -4433,6 +4693,7 @@ def main() -> int:
         entry["procs_launches"] = procs["launches"][entry["name"]]
         entry["learn_launches"] = learn["launches"][entry["name"]]
         entry["zoo_train_launches"] = zoo_train["launches"][entry["name"]]
+        entry["dryrun_launches"] = dry["launches"].get(entry["name"], 0)
         case = stream["kernel_cases"].get(entry["name"])
         if case is not None:
             entry["stream_case"] = {k: case[k] for k in case_keys}

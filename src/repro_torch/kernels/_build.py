@@ -180,11 +180,23 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _is_dtensor(t: torch.Tensor) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def check_tensor(t, name: str, dtypes, shape=None, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of an allowed dtype
-    (and of ``shape`` and on ``device`` when given) — what a kernel takes."""
+    (and of ``shape`` and on ``device`` when given), not a ``DTensor`` —
+    what a kernel takes."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if _is_dtensor(t):
+        raise TypeError(f"{name} is a DTensor: a kernel takes one device's plain tensor, "
+                        "so call it on the local shard (DTensor.to_local())")
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
     if device is not None and t.device != device:

@@ -1,9 +1,17 @@
 """Device dispatch for the port's kernels.
 
 The tensor's device picks the path: a CUDA tensor launches the hand-written
-kernel (and raises if it cannot), a CPU tensor takes the plain PyTorch
-version in ``kernels.ref``, anything else raises.  There is no fallback from
-one to the other.
+kernel (and raises if it cannot), a CPU or meta tensor takes the plain
+PyTorch version in ``kernels.ref``, anything else raises.  There is no
+fallback from one to the other.  A ``DTensor`` on the card reaches a
+kernel wrapper, which refuses it (``_build.check_tensor``).  The zoo's three
+kernels on a meta or CPU ``DTensor`` (the dry-run's, ``launch.steps``) run
+*shard-local*, as each card of a mesh would run its kernel on its own
+shard: the inputs are redistributed so that only their batch and head
+dimensions are sharded, alike for all of them, and the plain version runs
+once over global-shape stand-ins (``dist.sharding.shard_local``), so that
+its count is the one-device count and its output carries the first input's
+layout.
 
 Gradients: the three graph aggregations go through
 ``torch.autograd.Function``s (``csr_spmm.CsrSpmm``,
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor, shard_local
 from repro_torch.kernels import ref
 from repro_torch.kernels.csr_spmm import (csr_spmm_autograd, csr_spmm_cuda,
                                           csr_spmm_etype_mean_autograd,
@@ -45,12 +54,15 @@ from repro_torch.params import tree_leaves
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raise for any other."""
+    """True for a CUDA tensor, False for a CPU or meta one; raise for any
+    other.  A meta tensor has no values, so taking the plain version there
+    hides nothing: it is how the dry-run (``launch.dryrun``) traces a step
+    at full size, as the reference's dry-run traces its XLA path."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
-    raise ValueError(f"no kernel path for tensors on {t.device}: use cuda or cpu")
+    raise ValueError(f"no kernel path for tensors on {t.device}: use cuda, cpu or meta")
 
 
 def _wants_grad(*tensors) -> bool:
@@ -144,6 +156,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     XLA path (``blockwise_attention`` over key blocks of min(512, Sk)).
     Under grad: ``FlashAttention`` (the backward kernel on the card)."""
     cuda = _on_cuda(q)
+    if not cuda and is_dtensor(q):
+        return shard_local(lambda *t: flash_attention(*t, causal, window), (q, k, v),
+                           ((0, 1),) * 3)
     if _wants_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, cuda)
     if cuda:
@@ -157,6 +172,9 @@ def gqa_decode(q, k, v, kv_len=None, window: int | None = None):
     if _on_cuda(q):
         refuse_grad("gqa_decode", q, k, v)
         return gqa_decode_cuda(q, k, v, kv_len=kv_len, window=window)
+    if is_dtensor(q):
+        return shard_local(lambda *t: gqa_decode(*t, window=window), (q, k, v, kv_len),
+                           ((0, 1), (0, 1), (0, 1), (0, None)))
     return ref.gqa_decode_ref(q, k, v, kv_len=kv_len, window=window)
 
 
@@ -173,6 +191,10 @@ def ssd_scan(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     Under grad: ``SsdScan`` (the backward kernel on the card).
     """
     cuda = _on_cuda(x)
+    if not cuda and is_dtensor(x):
+        return shard_local(lambda *t: ssd_scan(*t, chunk=chunk, compute_dtype=compute_dtype),
+                           (x, dt, a, b, c, d_skip),
+                           ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0)))
     if _wants_grad(*(t for t in (x, dt, a, b, c, d_skip) if t is not None)):
         return SsdScan.apply(x, dt, a, b, c, d_skip, chunk, compute_dtype, cuda)
     if cuda:

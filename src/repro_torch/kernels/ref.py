@@ -395,12 +395,12 @@ def attention_lse_ref(q, k, causal=True, window=None):
     rep = hq // hkv
     valid, dead = _attn_masks(sq, sk, causal, window, q.device)
     acc = _acc_dtype(q.dtype)
-    out = torch.empty((b, hq, sq), dtype=acc, device=q.device)
+    out = []
     for g in range(hkv):
         hs = slice(g * rep, (g + 1) * rep)
         s = _attn_logits(q[:, hs].to(acc), k[:, g].to(acc), valid, dead, dh ** -0.5)
-        out[:, hs] = torch.logsumexp(s, -1)
-    return out
+        out.append(torch.logsumexp(s, -1))
+    return torch.cat(out, dim=1)
 
 
 def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
@@ -424,9 +424,7 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
     valid, dead = _attn_masks(sq, sk, causal, window, q.device)
     acc = _acc_dtype(q.dtype)
     delta = (dout.to(acc) * out.to(acc)).sum(-1)                     # [B, Hq, Sq]
-    dq = torch.empty(q.shape, dtype=acc, device=q.device)
-    dk = torch.empty(k.shape, dtype=acc, device=q.device)
-    dv = torch.empty(v.shape, dtype=acc, device=q.device)
+    dq, dk, dv = [], [], []
     for g in range(hkv):
         hs = slice(g * rep, (g + 1) * rep)
         qg, kg, vg = q[:, hs].to(acc), k[:, g].to(acc), v[:, g].to(acc)
@@ -434,14 +432,15 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
         p = torch.exp(_attn_logits(qg, kg, valid, dead, scale) - lse[:, hs, :, None])
         dp = torch.einsum("brqd,bkd->brqk", dog, vg)
         ds = torch.where(valid, p * (dp - delta[:, hs, :, None]), torch.zeros_like(p))
-        dq[:, hs] = torch.einsum("brqk,bkd->brqd", ds, kg) * scale
+        dq.append(torch.einsum("brqk,bkd->brqd", ds, kg) * scale)
         dkg = dvg = 0.0
         for r in range(rep):          # the kv head's q heads in order
             dkg = dkg + torch.einsum("bqk,bqd->bkd", ds[:, r], qg[:, r])
             dvg = dvg + torch.einsum("bqk,bqd->bkd", p[:, r], dog[:, r])
-        dk[:, g] = dkg * scale
-        dv[:, g] = dvg
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        dk.append(dkg * scale)
+        dv.append(dvg)
+    return (torch.cat(dq, 1).to(q.dtype), torch.stack(dk, 1).to(k.dtype),
+            torch.stack(dv, 1).to(v.dtype))
 
 
 def flash_attention_bwd_mma_ref(q, k, v, out, dout, lse, causal=True, window=None):

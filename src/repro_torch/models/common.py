@@ -7,12 +7,14 @@ arrays.  Parameters are plain dicts of tensors in the reference's ``x @ W``
 ``torch.Generator`` (draws are made on the generator's device, in float32)
 and the ``device`` the tensor is moved to; shapes, dtypes and scales are the
 reference's, the values are not (the reference draws from ``jax.random``).
+On the meta device nothing is drawn (``dense_init``): an abstract tree.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.utils.padding import pad_to_multiple
 
 NEG_INF = -1e30
@@ -31,7 +33,12 @@ def torch_dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype, scale=None, device=None):
-    """Normal weights of ``shape`` scaled by ``fan_in ** -0.5`` (or ``scale``)."""
+    """Normal weights of ``shape`` scaled by ``fan_in ** -0.5`` (or ``scale``).
+
+    On the meta device (an abstract tree: shapes and dtypes only) nothing is
+    drawn: the result is ``torch.empty`` on meta and ``gen`` is not touched."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     if scale is None:
         scale = shape[0] ** -0.5
     w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
@@ -178,11 +185,18 @@ def softmax_cross_entropy(logits, labels, mask=None):
     logsumexp(logits) - logits[label] in f32, over the ``mask`` (a masked
     mean divided by max(mask sum, 1)) where given.
 
-    The gold logit is a plain gather: the reference's iota-compare exists
-    for its vocabulary-sharded GSPMD layout, which one card does not have."""
+    The gold logit is a plain gather on one device.  On the dry-run's
+    vocabulary-sharded logits (a ``DTensor``) it is the reference's
+    iota-compare reduction, which keeps the vocabulary sharded (a partial
+    sum and a small all-reduce) where a gather would all-gather the logits;
+    the two give the same value."""
     logits = wide(logits)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(iota == labels.long()[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

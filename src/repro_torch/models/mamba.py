@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import shard_local
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, rmsnorm, torch_dtype, wide
 
@@ -92,7 +93,12 @@ def mamba_apply(params, cfg, x, *, return_state=False):
     out = _gate_out(params, y.reshape(b, s, cfg.d_inner), z)
     if not return_state:
         return out, None
-    return out, {"conv": conv_state, "ssm": _final_state(xs, dt, a, bmat)}
+    # shard-local on a mesh (dist.sharding.shard_local): independent over the
+    # batch and the heads, and its reversed prefix sum (torch.flip) has no
+    # DTensor rule in torch 2.11
+    state = shard_local(_final_state, (xs, dt, a, bmat), ((0, 2), (0, 2), (None, 0), (0, None)),
+                        out_dims=(0, 1))
+    return out, {"conv": conv_state, "ssm": state}
 
 
 def _final_state(xs, dt, a, bmat):

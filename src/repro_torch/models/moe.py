@@ -3,8 +3,11 @@
 The reference's ``repro.models.moe`` with tensors.  Every expert GEMM stays
 dense over a fixed ``[E, C, d]`` expert buffer filled by a gather (plain
 batched matrix products, ``torch.bmm``: the reference computes them outside
-any Pallas kernel).  The port has no mesh, so routing runs as the
-reference's single group (its ``_num_groups`` is 1 without a mesh).
+any Pallas kernel).  Routing runs as the reference's single group (its
+``_num_groups`` is 1 without a mesh), on a mesh too: the dry-run's counts
+then equal the one-card step's.  On a mesh (``launch.steps``) the tokens,
+the expert buffer and the expert weights get the reference's layout hints
+(``dist.sharding.shard_spec``), which do nothing elsewhere.
 
 Capacity: ``C = int(ceil(k·T / E) · capacity_factor) + 1``, or ``k·T``
 under ``full_capacity``; overflowed assignments drop (their gate mass is
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import model_axis_size, shard_spec
 from repro_torch.models.common import dense_init, torch_dtype, wide
 from repro_torch.utils.padding import ceil_div
 
@@ -66,7 +70,7 @@ def moe_dispatch(expert_idx, num_experts: int, cap: int):
     flat_e = expert_idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=num_experts)
+    counts = expert_counts(sorted_e, num_experts)
     offsets = torch.cumsum(counts, 0) - counts          # segment starts
     rank = torch.arange(flat_e.numel(), device=flat_e.device) - offsets[sorted_e]
     keep = rank < cap
@@ -75,10 +79,18 @@ def moe_dispatch(expert_idx, num_experts: int, cap: int):
     tok_of_sorted = order // expert_idx.shape[1]
     # one row past the buffer takes every dropped write, then is cut off
     inv = torch.full((sentinel + 1,), t, dtype=torch.long, device=flat_e.device)
-    inv[slot] = tok_of_sorted
-    slot_of_assign = torch.empty_like(slot)
-    slot_of_assign[order] = slot
+    inv = inv.index_put((slot,), tok_of_sorted)
+    slot_of_assign = torch.empty_like(slot).index_put((order,), slot)
     return inv[:-1], slot_of_assign
+
+
+def expert_counts(expert_idx, num_experts: int):
+    """How many of ``expert_idx``'s entries name each expert: [E] int64,
+    ``torch.bincount(expert_idx, minlength=E)``'s integers by a scatter-add
+    of ones, which also runs on the meta device (the dry-run's)."""
+    flat = expert_idx.reshape(-1).long()
+    return torch.zeros(num_experts, dtype=torch.long, device=flat.device).scatter_add(
+        0, flat, torch.ones_like(flat))
 
 
 def moe_apply(params, cfg, x, full_capacity: bool = False):
@@ -89,24 +101,43 @@ def moe_apply(params, cfg, x, full_capacity: bool = False):
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = moe_capacity(cfg, t, full_capacity)
+    x = shard_spec(x, "dp", None)
     probs, gate_vals, expert_idx = moe_route(params, x, k)
 
     # load-balance aux loss (Switch eq. 4)
-    hits = torch.bincount(expert_idx.reshape(-1), minlength=e).float() / (t * k)
+    hits = expert_counts(expert_idx, e).float() / (t * k)
     aux = e * torch.sum(probs.mean(0) * hits)
 
     inv, slot_of_assign = moe_dispatch(expert_idx, e, cap)
     x_pad = torch.cat([x, x.new_zeros((1, d))])
     z = x_pad[inv].reshape(e, cap, d)
 
-    g = F.silu(wide(torch.bmm(z, params["w_gate"]))).to(z.dtype)
-    u = torch.bmm(z, params["w_up"])
-    y_ec = torch.bmm(g * u, params["w_down"])                        # [E, C, d]
+    # expert layout (the reference's specs, whose leading group entry the
+    # trailing alignment of resolve_spec drops): experts over the model
+    # axis where it divides them (expert parallelism), else d_ff over it
+    mdl = model_axis_size()
+    ep = e % mdl == 0 and mdl > 1
+    if ep:
+        z = shard_spec(z, "dp", "model", None, None)
+        wg = shard_spec(params["w_gate"], "model", None, None)
+        wu = shard_spec(params["w_up"], "model", None, None)
+        wd = shard_spec(params["w_down"], "model", None, None)
+    else:
+        z = shard_spec(z, "dp", None, None, None)
+        wg = shard_spec(params["w_gate"], None, None, "model")
+        wu = shard_spec(params["w_up"], None, None, "model")
+        wd = shard_spec(params["w_down"], None, "model", None)
+
+    g = F.silu(wide(torch.bmm(z, wg))).to(z.dtype)
+    u = torch.bmm(z, wu)
+    y_ec = torch.bmm(g * u, wd)                                      # [E, C, d]
+    y_ec = shard_spec(y_ec, "dp", "model" if ep else None, None, None)
 
     y_flat = torch.cat([y_ec.reshape(e * cap, d), y_ec.new_zeros((1, d))])
     contrib = y_flat[slot_of_assign].reshape(t, k, d)
     y = torch.einsum("tkd,tk->td", contrib, gate_vals.to(contrib.dtype))
-    return y.to(x.dtype), aux
+    y = shard_spec(y.to(x.dtype), "dp", None)
+    return y, aux
 
 
 def moe_apply_dense_ref(params, cfg, x):

@@ -26,6 +26,9 @@ runs only the ``dec`` group over tokens, each layer self attention, cross
 attention over the encoder's output and an FFN.  The cross layers' decode
 caches hold the static K/V of the vision tokens or the encoder's output.
 There is no ``use_pallas``: the tensors' device picks the kernel path.
+The reference's layout hints (``dist.sharding.shard_hint``) stand where it
+has them; they act only on the dry-run's ``DTensor``s over a mesh
+(``launch.steps``) and return every plain tensor unchanged.
 
 Entry points: ``init_params``, ``forward``, ``forward_train`` (the
 causal LM loss, for ``torch.autograd``), ``prefill`` (logits + cache),
@@ -39,6 +42,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import shard_hint, shard_local
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (dense_init, ffn_apply, ffn_init,
                                       layernorm_nonparametric, rmsnorm, softmax_cross_entropy,
@@ -214,9 +218,20 @@ def _decoder_block(p, cfg, h, *, want_cache, attn_impl="blockwise", causal=True)
     """Returns (h, cache, aux)."""
     a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), causal=causal,
                                attn_impl=attn_impl)
-    h = h + a_out
+    # the port's one hint beyond the reference's: on a mesh the residual
+    # keeps the activations' layout, where DTensor would otherwise shard the
+    # sequence over the model axis, which torch 2.11's views cannot flatten
+    h = shard_hint(h + a_out, "act")
     f_out, aux = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]))
     return h + f_out, ({"k": k, "v": v} if want_cache else None), aux
+
+
+def _decoder_layer(p, cfg, h, **kwargs):
+    """A layer of the decoder, zamba_super (shared attention) and vlm_super
+    groups: :func:`_decoder_block`, its output hinted to the activations'
+    layout (the audio encoder's layers go without, as in the reference)."""
+    h, cache, aux = _decoder_block(p, cfg, h, **kwargs)
+    return shard_hint(h, "act"), cache, aux
 
 
 def _cross_block(p, cfg, h, memory, *, want_cache):
@@ -237,14 +252,14 @@ def _dec_block(p, cfg, h, memory, *, want_cache):
     x_out, (kx, vx) = attn_apply(p["cross"], cfg, _norm(cfg, h, p["ln_x"]), kv_x=memory,
                                  causal=False, use_rope=False)
     h = h + x_out
-    h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
+    h = shard_hint(h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type), "act")
     cache = {"self": {"k": k, "v": v}, "cross": {"k": kx, "v": vx}} if want_cache else None
     return h, cache
 
 
 def _mamba_block(p, cfg, h, want_cache):
     y, st = mamba_apply(p, cfg, rmsnorm(h), return_state=want_cache)
-    return h + y, st
+    return shard_hint(h + y, "act"), st
 
 
 def _mamba_stack(gp, cfg, h, want_cache, use_remat=False):
@@ -270,7 +285,7 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
         if gname == "decoder":
             outs = []
             for i in range(n):
-                h, cache, aux = _body(use_remat, _decoder_block, _layer(gp, i), cfg, h,
+                h, cache, aux = _body(use_remat, _decoder_layer, _layer(gp, i), cfg, h,
                                       want_cache=want_cache, attn_impl=attn_impl)
                 if aux is not None:
                     aux_total = aux_total + aux
@@ -283,7 +298,7 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
             outs = []
             for i in range(n):
                 h, mstates = _mamba_stack(_layer(gp["mamba"], i), cfg, h, want_cache, use_remat)
-                h, acache, _ = _body(use_remat, _decoder_block, shared, cfg, h,
+                h, acache, _ = _body(use_remat, _decoder_layer, shared, cfg, h,
                                      want_cache=want_cache, attn_impl=attn_impl)
                 outs.append({"mamba": mstates, "attn": acache})
             caches[gname] = _stack(outs) if want_cache else None
@@ -292,7 +307,7 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
             for i in range(n):
                 sp, scaches = _layer(gp["self"], i), []
                 for j in range(cfg.cross_attn_every - 1):
-                    h, cache, _ = _body(use_remat, _decoder_block, _layer(sp, j), cfg, h,
+                    h, cache, _ = _body(use_remat, _decoder_layer, _layer(sp, j), cfg, h,
                                         want_cache=want_cache, attn_impl=attn_impl)
                     scaches.append(cache)
                 h, xcache = _body(use_remat, _cross_block, _layer(gp["cross"], i), cfg, h,
@@ -321,6 +336,10 @@ def _encode(params, cfg, frames, use_remat=False):
     return h
 
 
+def _lookup(tokens, table):
+    return table[tokens]
+
+
 def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
             attn_impl: str = "blockwise", use_remat: bool = False):
     """tokens: [B, S] int; ``extra``: ``{"vision": [B, Tv, d]}`` for a vlm
@@ -332,7 +351,11 @@ def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
     ``models.attention.attn_apply``).  ``use_remat``: recompute each layer
     in the backward (:func:`_body`)."""
     extra = extra or {}
-    h = params["embed"][tokens.long()]
+    # on a mesh the lookup is shard-local over the batch, the table gathered
+    # first (as FSDP gathers a weight before its use): torch 2.11's DTensor
+    # has no working rule for the lookup's gradient
+    h = shard_hint(shard_local(_lookup, (tokens.long(), params["embed"]),
+                               ((0, None), (None, None)), out_dims=(0, None)), "act")
     if cfg.arch_type == "audio":
         memory = _encode(params, cfg, extra["frames"], use_remat)
         dec_params = {"groups": {"dec": params["groups"]["dec"]}}
@@ -344,7 +367,7 @@ def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
     else:
         h, caches, aux = _run_groups(params, cfg, h, extra, want_cache=want_cache,
                                      attn_impl=attn_impl, use_remat=use_remat)
-    logits = _norm(cfg, h, params["final_ln"]) @ params["head"]
+    logits = shard_hint(_norm(cfg, h, params["final_ln"]) @ params["head"], "logits")
     return logits, caches, aux
 
 
@@ -488,7 +511,7 @@ def _decoder_block_decode(p, cfg, h, cache, pos):
     a_out, cache = attn_decode(p["attn"], cfg, _norm(cfg, h, p["ln1"]), cache, pos)
     h = h + a_out
     f_out, _ = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]), full_capacity=True)
-    return h + f_out, cache
+    return shard_hint(h + f_out, "act"), cache
 
 
 def _mamba_stack_decode(gp, cfg, h, cstack):
@@ -508,7 +531,7 @@ def decode_step(params, cfg: ArchConfig, token, caches):
     ``caches`` is updated in place (Mamba states, the new K/V rows, ``pos``)
     and returned."""
     pos = caches["pos"]
-    h = params["embed"][token.long()[:, None]]
+    h = shard_hint(params["embed"][token.long()[:, None]], "act")
     for gname, n in build_program(cfg):
         if gname == "enc":
             continue
@@ -543,6 +566,6 @@ def decode_step(params, cfg: ArchConfig, token, caches):
                                        pos, cross=True)
                 h = h + x_out
                 h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
-    logits = (_norm(cfg, h, params["final_ln"]) @ params["head"])[:, 0]
+    logits = shard_hint(_norm(cfg, h, params["final_ln"]) @ params["head"], "logits")[:, 0]
     caches["pos"] = pos + 1
     return logits, caches

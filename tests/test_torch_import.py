@@ -366,15 +366,73 @@ def test_zoo_serves_on_cpu_when_asked(no_cuda, capsys):
     assert "decoded 1 tokens x 1 seqs" in capsys.readouterr().out
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device with no kernel path (no storage)."""
+
+    @staticmethod
+    def __new__(cls, *shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_dispatch_raises_for_other_devices():
+    h = _Elsewhere(4, 3)
+    idx, w = _Elsewhere(4, 2, dtype=torch.int32), _Elsewhere(4, 2)
+    with pytest.raises(ValueError, match="no kernel path"):
+        ops.csr_spmm(h, idx, w)
+    with pytest.raises(ValueError, match="no kernel path"):
+        ops.csr_spmm_etype_mean(h, idx, w, idx, 4)
+    q, q1 = _Elsewhere(1, 2, 8, 64), _Elsewhere(1, 2, 64)
+    for call in (lambda: ops.flash_attention(q, q, q), lambda: ops.gqa_decode(q1, q, q),
+                 lambda: ops.ssd_scan(q, q, q, q, q)):
+        with pytest.raises(ValueError, match="no kernel path"):
+            call()
+
+
+def test_dispatch_takes_plain_version_for_meta_tensors():
+    """A meta tensor (the dry-run's) takes the plain version, as a CPU one:
+    the outputs' shapes and dtypes, no launch, under grad too."""
+    before = dict(_build.LAUNCHES)
     h = torch.zeros(4, 3, device="meta")
-    with pytest.raises(ValueError, match="no kernel path"):
-        ops.csr_spmm(h, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
-                     torch.zeros(4, 2, device="meta"))
-    with pytest.raises(ValueError, match="no kernel path"):
-        ops.csr_spmm_etype_mean(h, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
-                                torch.zeros(4, 2, device="meta"),
-                                torch.zeros(4, 2, dtype=torch.int32, device="meta"), 4)
+    out = ops.csr_spmm(h, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
+                       torch.zeros(4, 2, device="meta"))
+    assert (out.device.type, tuple(out.shape)) == ("meta", (4, 3))
+    q = torch.empty(2, 4, 64, 64, device="meta", requires_grad=True)
+    k = torch.empty(2, 2, 64, 64, device="meta", requires_grad=True)
+    out = ops.flash_attention(q, k, k)
+    assert (out.device.type, tuple(out.shape)) == ("meta", (2, 4, 64, 64))
+    out.sum().backward()
+    assert tuple(q.grad.shape) == tuple(q.shape) and tuple(k.grad.shape) == tuple(k.shape)
+    dec = ops.gqa_decode(torch.empty(2, 4, 64, device="meta"), k.detach(), k.detach(),
+                         kv_len=torch.empty(2, dtype=torch.int32, device="meta"))
+    assert tuple(dec.shape) == (2, 4, 64)
+    x = torch.empty(2, 128, 4, 16, device="meta")
+    y = ops.ssd_scan(x, torch.empty(2, 128, 4, device="meta"), torch.empty(4, device="meta"),
+                     torch.empty(2, 128, 8, device="meta"), torch.empty(2, 128, 8, device="meta"))
+    assert (y.device.type, tuple(y.shape)) == ("meta", (2, 128, 4, 16))
+    assert _build.LAUNCHES == before
+
+
+def test_dryrun_import_starts_no_group_and_sets_no_environment():
+    """Importing the dry-run (and the mesh, specs and roofline modules) in a
+    fresh interpreter starts no process group, changes no environment
+    variable and loads neither jax nor the reference package."""
+    code = ("import json, os, sys\n"
+            "before = dict(os.environ)\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.specs, repro_torch.launch.roofline\n"
+            "import torch.distributed as dist\n"
+            "print(json.dumps([dist.is_initialized(), dict(os.environ) == before,\n"
+            "                  sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "                         ('jax', 'jaxlib', 'repro'))]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True, timeout=300)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [False, True, []]
 
 
 def test_dispatch_takes_plain_version_for_cpu_tensors():
