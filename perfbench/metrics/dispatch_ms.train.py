@@ -1,0 +1,6 @@
+"""Host milliseconds from the call of the train entry to its return, before
+any synchronize: the median over the traced run's unprofiled window."""
+
+
+def read(run):
+    return run.dispatch_ms("train")

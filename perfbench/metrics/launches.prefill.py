@@ -1,0 +1,7 @@
+"""Device kernels a prefill call launches: every kernel in the profiler's
+trace of the profiled calls (cuBLAS, elementwise and the port's own),
+over the number of calls."""
+
+
+def read(run):
+    return run.launches("prefill")
