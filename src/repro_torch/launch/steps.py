@@ -33,6 +33,7 @@ from repro_torch.models.config import ArchConfig, InputShape
 from repro_torch.models.transformer import decode_step, forward_train, init_params, prefill
 from repro_torch.params import tree_map
 from repro_torch.train.optim import adamw, cosine_schedule, grad_step
+from repro_torch.utils.trace import span
 
 
 def abstract_params(cfg: ArchConfig):
@@ -166,9 +167,10 @@ def make_train_step(cfg: ArchConfig, mesh=None, shape: InputShape | None = None,
             aux.update(out[2])
             return out
 
-        params, opt_state, loss = grad_step(
-            lambda p: forward_train(p, cfg, batch, use_remat=use_remat, attn_impl=attn_impl),
-            params, opt_state, update)
+        with span("train_step"):
+            params, opt_state, loss = grad_step(
+                lambda p: forward_train(p, cfg, batch, use_remat=use_remat, attn_impl=attn_impl),
+                params, opt_state, update)
         return params, opt_state, {"loss": loss, **aux}
 
     if mesh is None:

@@ -52,6 +52,7 @@ from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.params import tree_map
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.trace import span
 
 # ---------------------------------------------------------------------------
 # block program
@@ -216,13 +217,15 @@ def _ffn_or_moe(p, cfg, f_in, *, full_capacity=False):
 
 def _decoder_block(p, cfg, h, *, want_cache, attn_impl="blockwise", causal=True):
     """Returns (h, cache, aux)."""
-    a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), causal=causal,
-                               attn_impl=attn_impl)
+    with span("attention"):
+        a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), causal=causal,
+                                   attn_impl=attn_impl)
     # the port's one hint beyond the reference's: on a mesh the residual
     # keeps the activations' layout, where DTensor would otherwise shard the
     # sequence over the model axis, which torch 2.11's views cannot flatten
     h = shard_hint(h + a_out, "act")
-    f_out, aux = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]))
+    with span("ffn"):
+        f_out, aux = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]))
     return h + f_out, ({"k": k, "v": v} if want_cache else None), aux
 
 
@@ -408,35 +411,37 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,
     """
     extra = extra or {}
     b, s = tokens.shape
-    logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True,
-                                    attn_impl=attn_impl)
-    fwd_caches.pop("enc_memory", None)   # cached per dec layer as cross K/V
-    extra_shapes = {}
-    if "vision" in extra:
-        extra_shapes["vision_len"] = extra["vision"].shape[1]
-    if "frames" in extra:
-        extra_shapes["memory_len"] = extra["frames"].shape[1]
-    full = init_cache(cfg, b, max_len, extra_shapes, device=logits.device)
-    ring = bool(cfg.ring_kv_cache and cfg.window)
+    with span("prefill"):
+        logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True,
+                                        attn_impl=attn_impl)
+        fwd_caches.pop("enc_memory", None)   # cached per dec layer as cross K/V
+        extra_shapes = {}
+        if "vision" in extra:
+            extra_shapes["vision_len"] = extra["vision"].shape[1]
+        if "frames" in extra:
+            extra_shapes["memory_len"] = extra["frames"].shape[1]
+        ring = bool(cfg.ring_kv_cache and cfg.window)
 
-    def merge(dst, src):
-        if dst.shape == src.shape:
-            return src.to(dst.dtype)
-        if dst.dim() != src.dim() or dst.shape[-1] != src.shape[-1]:
-            raise ValueError(f"cache shapes {tuple(dst.shape)} and {tuple(src.shape)}")
-        n, cap = src.shape[-2], dst.shape[-2]
-        if n > cap:
-            if not ring:
-                raise ValueError(f"a prompt of {n} positions does not fit a cache of {cap}")
-            src = torch.roll(src[..., n - cap:, :], shifts=(n - cap) % cap, dims=-2)
-            n = cap
-        dst[..., :n, :] = src
-        return dst
+        def merge(dst, src):
+            if dst.shape == src.shape:
+                return src.to(dst.dtype)
+            if dst.dim() != src.dim() or dst.shape[-1] != src.shape[-1]:
+                raise ValueError(f"cache shapes {tuple(dst.shape)} and {tuple(src.shape)}")
+            n, cap = src.shape[-2], dst.shape[-2]
+            if n > cap:
+                if not ring:
+                    raise ValueError(f"a prompt of {n} positions does not fit a cache of {cap}")
+                src = torch.roll(src[..., n - cap:, :], shifts=(n - cap) % cap, dims=-2)
+                n = cap
+            dst[..., :n, :] = src
+            return dst
 
-    merged = {"pos": s}
-    for gname, src in fwd_caches.items():
-        merged[gname] = _tree_map2(merge, full[gname], src)
-    return logits[:, -1], merged
+        with span("cache"):
+            full = init_cache(cfg, b, max_len, extra_shapes, device=logits.device)
+            merged = {"pos": s}
+            for gname, src in fwd_caches.items():
+                merged[gname] = _tree_map2(merge, full[gname], src)
+        return logits[:, -1], merged
 
 
 def _tree_map2(fn, a, b):

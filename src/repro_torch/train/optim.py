@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.trace import span
 
 
 class OptState(NamedTuple):
@@ -140,8 +141,11 @@ def grad_step(loss_fn, params, state: OptState, update_fn):
     zero gradient.  Returns (new_params, new_state, loss) with the loss
     detached, on the device (no copy to the host)."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    loss = loss_fn(tree_unflatten(params, leaves))
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-    new_params, state, _ = update_fn(tree_unflatten(params, grads), state, params)
+    with span("forward"):
+        loss = loss_fn(tree_unflatten(params, leaves))
+    with span("backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    with span("optimizer"):
+        new_params, state, _ = update_fn(tree_unflatten(params, grads), state, params)
     return new_params, state, loss.detach()
