@@ -4,7 +4,10 @@
 The reference's ``repro.models.transformer`` with tensors.  A config
 compiles to a *block program*, an ordered list of groups, each a stack of
 layers whose parameters are stacked on a leading axis (the reference's
-``lax.scan`` over stacked params becomes a Python loop over that axis):
+``lax.scan`` over stacked params becomes a Python loop over the layers that
+:func:`_layers` unbinds from each leaf once, so that under grad each leaf's
+gradient is one ``stack`` of the layers' gradients, as the scan writes each
+into its slice):
 
   dense/moe   [('decoder', L)]
   ssm         [('mamba', L)]
@@ -42,7 +45,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import shard_hint, shard_local
+from repro_torch.dist.sharding import is_dtensor, shard_hint, shard_local
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
 from repro_torch.models.common import (dense_init, ffn_apply, ffn_init,
                                       layernorm_nonparametric, rmsnorm, softmax_cross_entropy,
@@ -50,7 +53,7 @@ from repro_torch.models.common import (dense_init, ffn_apply, ffn_init,
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.params import tree_map
+from repro_torch.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trace import span
 
@@ -87,8 +90,31 @@ def _norm(cfg, x, scale):
 
 
 def _layer(stacked, i):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+    """Layer ``i`` of a stacked tree (views, no copies).  For the decode
+    caches and ``decode_step``, outside autograd: under grad each ``t[i]``
+    has a backward that writes its slice into a zero-filled gradient of the
+    whole leaf, and autograd sums the L of them, bytes that grow as L².  The
+    forward takes its layers from :func:`_layers`."""
     return tree_map(lambda t: t[i], stacked)
+
+
+def _sharded_on_layers(t) -> bool:
+    """Whether ``t`` is a dry-run ``DTensor`` sharded along its leading
+    (layer) axis, which ``DTensor`` refuses to unbind: FSDP's rule shards a
+    stacked vector leaf's penultimate dim, its layer axis, over ``data``."""
+    return is_dtensor(t) and any(p.is_shard(0) for p in t.placements)
+
+
+def _layers(stacked) -> list:
+    """Every layer of a stacked tree, one tree of views a layer: each leaf
+    unbound once along its leading axis.  Under grad a leaf's backward is
+    then one ``stack`` of its layers' gradients (:func:`_layer`'s ``t[i]``
+    would cost L zero-filled full-size gradients and their sum); without
+    grad the views are the same and nothing launches.  A leaf that
+    :func:`_sharded_on_layers` is taken a layer at a time by ``t[i]``."""
+    parts = [[t[i] for i in range(t.shape[0])] if _sharded_on_layers(t) else torch.unbind(t, 0)
+             for t in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [p[i] for p in parts]) for i in range(len(parts[0]))]
 
 
 def _stack(trees):
@@ -267,8 +293,8 @@ def _mamba_block(p, cfg, h, want_cache):
 
 def _mamba_stack(gp, cfg, h, want_cache, use_remat=False):
     states = []
-    for i in range(gp["w_in"].shape[0]):
-        h, st = _body(use_remat, _mamba_block, _layer(gp, i), cfg, h, want_cache)
+    for p in _layers(gp):
+        h, st = _body(use_remat, _mamba_block, p, cfg, h, want_cache)
         states.append(st)
     return h, (_stack(states) if want_cache else None)
 
@@ -281,14 +307,14 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
     blocks and shared attention each) through :func:`_body`."""
     caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for gname, n in build_program(cfg):
+    for gname, _ in build_program(cfg):
         if gname not in params["groups"]:
             continue
         gp = params["groups"][gname]
         if gname == "decoder":
             outs = []
-            for i in range(n):
-                h, cache, aux = _body(use_remat, _decoder_layer, _layer(gp, i), cfg, h,
+            for p in _layers(gp):
+                h, cache, aux = _body(use_remat, _decoder_layer, p, cfg, h,
                                       want_cache=want_cache, attn_impl=attn_impl)
                 if aux is not None:
                     aux_total = aux_total + aux
@@ -299,28 +325,28 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
         elif gname == "zamba_super":
             shared = params["shared_attn"]
             outs = []
-            for i in range(n):
-                h, mstates = _mamba_stack(_layer(gp["mamba"], i), cfg, h, want_cache, use_remat)
+            for mp in _layers(gp["mamba"]):
+                h, mstates = _mamba_stack(mp, cfg, h, want_cache, use_remat)
                 h, acache, _ = _body(use_remat, _decoder_layer, shared, cfg, h,
                                      want_cache=want_cache, attn_impl=attn_impl)
                 outs.append({"mamba": mstates, "attn": acache})
             caches[gname] = _stack(outs) if want_cache else None
         elif gname == "vlm_super":
             outs = []
-            for i in range(n):
-                sp, scaches = _layer(gp["self"], i), []
-                for j in range(cfg.cross_attn_every - 1):
-                    h, cache, _ = _body(use_remat, _decoder_layer, _layer(sp, j), cfg, h,
+            for sp, xp in zip(_layers(gp["self"]), _layers(gp["cross"])):
+                scaches = []
+                for p in _layers(sp):
+                    h, cache, _ = _body(use_remat, _decoder_layer, p, cfg, h,
                                         want_cache=want_cache, attn_impl=attn_impl)
                     scaches.append(cache)
-                h, xcache = _body(use_remat, _cross_block, _layer(gp["cross"], i), cfg, h,
-                                  extra["vision"], want_cache=want_cache)
+                h, xcache = _body(use_remat, _cross_block, xp, cfg, h, extra["vision"],
+                                  want_cache=want_cache)
                 outs.append({"self": _stack(scaches) if want_cache else None, "cross": xcache})
             caches[gname] = _stack(outs) if want_cache else None
         elif gname == "dec":
             outs = []
-            for i in range(n):
-                h, cache = _body(use_remat, _dec_block, _layer(gp, i), cfg, h, extra["memory"],
+            for p in _layers(gp):
+                h, cache = _body(use_remat, _dec_block, p, cfg, h, extra["memory"],
                                  want_cache=want_cache)
                 outs.append(cache)
             caches[gname] = _stack(outs) if want_cache else None
@@ -332,10 +358,8 @@ def _encode(params, cfg, frames, use_remat=False):
     is a stub, as in the reference): decoder layers with non-causal self
     attention (RoPE applied); no cache."""
     h = frames.to(torch_dtype(cfg.dtype))
-    gp = params["groups"]["enc"]
-    for i in range(gp["ln1"].shape[0]):
-        h, _, _ = _body(use_remat, _decoder_block, _layer(gp, i), cfg, h, want_cache=False,
-                        causal=False)
+    for p in _layers(params["groups"]["enc"]):
+        h, _, _ = _body(use_remat, _decoder_block, p, cfg, h, want_cache=False, causal=False)
     return h
 
 

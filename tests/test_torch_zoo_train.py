@@ -35,6 +35,7 @@ from repro.train.optim import adamw as ref_adamw
 from repro_torch import params as P
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import moe as TM
+from repro_torch.models import transformer as T
 from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import forward_train
@@ -140,6 +141,96 @@ def test_remat_changes_no_bit(arch):
     loss1, g1 = _port_grads(tparams, cfg, batch, use_remat=True)
     assert torch.equal(loss0, loss1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+GROUPS = {case: arch for case, (arch, changes, masked) in CASES.items()
+          if not changes and not masked}
+#: the groups whose stacked leaves carry two layer axes [n_super, k, ...]
+NESTED = {"zamba_super": "mamba", "vlm_super": "self"}
+
+
+def _select_layers(stacked):
+    """The forward's layers as ``t[i]`` views of each stacked leaf."""
+    return [T._layer(stacked, i) for i in range(P.tree_leaves(stacked)[0].shape[0])]
+
+
+@pytest.mark.parametrize("use_remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("case", list(GROUPS), ids=list(GROUPS))
+def test_unbound_layers_give_the_bits_of_select_views(case, use_remat, monkeypatch):
+    """Unbinding each stacked leaf once changes how the backward gathers a
+    leaf's gradient (one ``stack`` in place of L zero-filled copies summed),
+    not one bit of the loss or of any gradient."""
+    ref_cfg = _ref_cfg(GROUPS[case])
+    cfg = _port_cfg(ref_cfg)
+    params = RT.init_params(jax.random.PRNGKey(5), ref_cfg)
+    tparams = P.from_numpy(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    batch = _batch(cfg, seed=5, masked=True)
+    loss, grads = _port_grads(tparams, cfg, batch, use_remat=use_remat)
+    monkeypatch.setattr(T, "_layers", _select_layers)
+    want_loss, want = _port_grads(tparams, cfg, batch, use_remat=use_remat)
+    assert torch.equal(loss, want_loss)
+    for (path, _), g, w in zip(P.flatten_paths(tparams), grads, want):
+        assert torch.equal(g, w), path
+
+
+def _graph_nodes(root):
+    seen, todo = {}, [root]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen[id(node)] = node
+        todo.extend(nxt for nxt, _ in node.next_functions)
+    return list(seen.values())
+
+
+@pytest.mark.parametrize("case", list(GROUPS), ids=list(GROUPS))
+def test_stacked_leaves_are_unbound_once_and_never_selected(case):
+    """In ``forward_train``'s graph each stacked leaf feeds one
+    ``UnbindBackward0``, and in a nested group each of those feeds one more
+    per outer slice.  No ``SelectBackward0`` reads a stacked leaf, nor a
+    nested group's outer slice (still a stack of k layers), which would
+    bring back the L (or k) zero-filled gradients a leaf and their sum; a
+    layer's own parameter may be indexed (Mamba2's ``conv_w[i]``)."""
+    ref_cfg = _ref_cfg(GROUPS[case])
+    cfg = _port_cfg(ref_cfg)
+    params = RT.init_params(jax.random.PRNGKey(6), ref_cfg)
+    tparams = P.from_numpy(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    batch = _batch(cfg, seed=6)
+    leaves = [t.detach().requires_grad_() for t in P.tree_leaves(tparams)]
+    tree = P.tree_unflatten(tparams, leaves)
+    loss = forward_train(tree, cfg, {k: torch.from_numpy(v) for k, v in batch.items()},
+                         use_remat=False)
+    stacked = {id(t): path for path, t in P.flatten_paths(tree["groups"])}
+    nested = {id(t): t.shape[0] for g, sub in NESTED.items() if g in tree["groups"]
+              for t in P.tree_leaves(tree["groups"][g][sub])}
+    assert stacked and set(nested) <= set(stacked)
+
+    def reads(node):
+        """The stacked leaf a node reads directly, else None."""
+        nxt = node.next_functions[0][0] if node.next_functions else None
+        return stacked.get(id(getattr(nxt, "variable", None)))
+
+    nodes = _graph_nodes(loss.grad_fn)
+    outer = [n for n in nodes if n.name() == "UnbindBackward0" and reads(n) is not None]
+    outer_ids = {id(n) for n in outer}
+    inner = [n for n in nodes if n.name() == "UnbindBackward0"
+             and id(n.next_functions[0][0]) in outer_ids]
+    by_leaf = {}
+    for n in outer:
+        by_leaf.setdefault(reads(n), []).append(n)
+    assert sorted(by_leaf) == sorted(stacked.values())
+    assert all(len(ns) == 1 for ns in by_leaf.values())
+    stacks = {id(n) for n in outer if id(n.next_functions[0][0].variable) in nested}
+    for t in leaves:
+        if id(t) in nested:
+            (n,) = by_leaf[stacked[id(t)]]
+            assert sum(m.next_functions[0][0] is n for m in inner) == nested[id(t)]
+    assert len(outer) + len(inner) == len(stacked) + sum(nested.values())
+    for n in nodes:
+        if n.name() == "SelectBackward0":
+            src = n.next_functions[0][0]
+            assert reads(n) is None and id(src) not in stacks, n
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
