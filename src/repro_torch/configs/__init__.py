@@ -7,6 +7,8 @@ the configurations, copied value for value: ``zamba2-1.2b`` (hybrid),
 ``phi3.5-moe-42b-a6.6b`` and ``mixtral-8x22b``, the vlm
 ``llama-3.2-vision-90b`` and the audio encoder-decoder
 ``seamless-m4t-medium``; and the paper's own model, ``lnn_fraud``.
+The port alone also has ``granite-4.0-h-small`` (``PORT_ONLY``), which
+``get_config`` resolves and ``all_configs`` leaves out.
 """
 from __future__ import annotations
 
@@ -40,13 +42,20 @@ CLI_ALIASES = {
     "qwen1.5-32b": "qwen1_5_32b",
 }
 
+#: configurations of the port that the reference does not have: CLI name ->
+#: module name
+PORT_ONLY = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 
 def get_config(arch: str):
     """The ``ArchConfig`` of ``arch`` (a CLI name or a module name), or the
     paper's ``LNNConfig`` for ``"lnn_fraud"``."""
-    mod_name = CLI_ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
-    if mod_name not in ARCH_IDS and mod_name != "lnn_fraud":
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(CLI_ALIASES)}")
+    mod_name = {**CLI_ALIASES, **PORT_ONLY}.get(arch, arch.replace("-", "_").replace(".", "_"))
+    if mod_name not in ARCH_IDS and mod_name not in PORT_ONLY.values() \
+            and mod_name != "lnn_fraud":
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted({**CLI_ALIASES, **PORT_ONLY})}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 

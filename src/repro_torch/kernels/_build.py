@@ -33,12 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each kernel, one per successful launch by its wrapper; a run
 #: sets them to 0 and reads them to show which kernels a path went through.
+#: ``moe_experts`` counts one per call of the MoE's grouped expert products
+#: (``kernels/moe_experts.py``: three grouped GEMMs, one per projection).
 #: Wrappers may launch from several host threads (the streaming engine's
 #: refresh thread), so every update holds ``_LAUNCH_LOCK``
 LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0,
             "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0,
             "csr_spmm_bwd": 0, "edge_softmax_bwd": 0,
-            "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
+            "flash_attention_bwd": 0, "ssd_scan_bwd": 0, "moe_experts": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -171,6 +173,11 @@ def check_launch(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error (``cudaGetLastError``)."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of ``name``."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
 

@@ -49,11 +49,12 @@ def _check_qkv(q, k, v, window):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int | None = None,
-                         save_lse: bool = False):
+                         save_lse: bool = False, scale: float | None = None):
     """Launch the kernel.  ``q`` [B, Hq, Sq, Dh], ``k``/``v`` [B, Hkv, Sk, Dh]
     with Hq % Hkv == 0 and Dh in {64, 128}, all float32 or all bfloat16,
     contiguous on one CUDA device.  q rows are aligned to the end of the
-    keys.  Returns [B, Hq, Sq, Dh] in q's dtype; with ``save_lse`` also
+    keys; the logits are scaled by ``scale`` (default ``Dh ** -0.5``).
+    Returns [B, Hq, Sq, Dh] in q's dtype; with ``save_lse`` also
     each row's logsumexp [B, Hq, Sq] f32 (``ref.attention_lse_ref``), which
     the kernel then writes beside the output (the output's bits do not
     change)."""
@@ -70,13 +71,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), bsz, hq, hkv, sq, sk, dh,
-                int(causal), window or 0, dh ** -0.5, stream_ptr(q))
+                int(causal), window or 0, dh ** -0.5 if scale is None else scale,
+                stream_ptr(q))
     check_launch(rc, "flash_attention")
     return (out, lse) if save_lse else out
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
-                             window: int | None = None):
+                             window: int | None = None, scale: float | None = None):
     """Launch the backward kernel: (dq, dk, dv) in the dtypes of q, k, v from
     the forward's inputs, its output ``out``, the output's gradient ``dout``
     (both [B, Hq, Sq, Dh] in q's dtype) and the row logsumexp ``lse``
@@ -103,20 +105,21 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                bsz, hq, hkv, sq, sk, dh, int(causal), window or 0, dh ** -0.5,
-                stream_ptr(q))
+                bsz, hq, hkv, sq, sk, dh, int(causal), window or 0,
+                dh ** -0.5 if scale is None else scale, stream_ptr(q))
     check_launch(rc, "flash_attention_bwd")
     return dq, dk, dv
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window: int | None = None):
+def flash_attention_plain(q, k, v, causal: bool = True, window: int | None = None,
+                          scale: float | None = None):
     """The plain version: the reference's XLA path, ``blockwise_attention``
     over key blocks of min(512, Sk)."""
     # imported here: models.common's package imports kernels.ops, which imports this module
     from repro_torch.models.common import blockwise_attention
 
     return blockwise_attention(q, k, v, causal=causal, window=window,
-                               block_k=min(512, k.shape[2]))
+                               block_k=min(512, k.shape[2]), scale=scale)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -126,20 +129,20 @@ class FlashAttention(torch.autograd.Function):
     The forward's output is the no-grad path's, bit for bit."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, cuda):
+    def forward(ctx, q, k, v, causal, window, cuda, scale=None):
         if cuda:
-            out, lse = flash_attention_cuda(q, k, v, causal, window, save_lse=True)
+            out, lse = flash_attention_cuda(q, k, v, causal, window, save_lse=True, scale=scale)
         else:
-            out = flash_attention_plain(q, k, v, causal, window)
-            lse = ref.attention_lse_ref(q, k, causal, window)
+            out = flash_attention_plain(q, k, v, causal, window, scale)
+            lse = ref.attention_lse_ref(q, k, causal, window, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mode = (causal, window, cuda)
+        ctx.mode = (causal, window, cuda, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        causal, window, cuda = ctx.mode
+        causal, window, cuda, scale = ctx.mode
         fn = flash_attention_bwd_cuda if cuda else ref.flash_attention_bwd_ref
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = fn(q, k, v, out, dout.contiguous(), lse, causal, window)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = fn(q, k, v, out, dout.contiguous(), lse, causal, window, scale)
+        return dq, dk, dv, None, None, None, None

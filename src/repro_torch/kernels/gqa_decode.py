@@ -20,11 +20,12 @@ CHUNK = 64       # cache rows per split of the first pass (csrc/gqa_decode.cu)
 
 def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: torch.Tensor | None = None,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, scale: float | None = None) -> torch.Tensor:
     """Launch the kernel.  ``q`` [B, Hq, Dh], ``k``/``v`` [B, Hkv, S, Dh]
     (the cache) with Hq / Hkv <= 16 and Dh in {64, 128}, all float32 or all
     bfloat16; ``kv_len`` [B] int32 valid lengths (None: all S); all
-    contiguous on one CUDA device.  Returns [B, Hq, Dh] in q's dtype.
+    contiguous on one CUDA device; the logits scaled by ``scale`` (default
+    ``Dh ** -0.5``).  Returns [B, Hq, Dh] in q's dtype.
 
     Two kernels run, counted as one launch: per-split partials into f32
     scratch, then their combine.  ``kv_len`` is read only on the card."""
@@ -58,6 +59,6 @@ def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), bsz, hkv, hq // hkv, s, dh, n_split, window or 0,
-                dh ** -0.5, stream_ptr(q))
+                dh ** -0.5 if scale is None else scale, stream_ptr(q))
     check_launch(rc, "gqa_decode")
     return out

@@ -32,7 +32,9 @@ backward a kernel on the card and the closed forms of ``kernels.ref`` on
 the CPU, each in a fixed order.  ``gqa_decode`` (decode only) and
 ``stage2_score`` (serving) have no backward: on the card they raise
 (:func:`refuse_grad`) rather than return a tensor that autograd cannot
-differentiate.
+differentiate.  ``moe_experts`` (the dropless MoE's expert products) is
+PyTorch's grouped GEMM on the card and a loop over the experts elsewhere,
+both differentiable by autograd.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from repro_torch.kernels.edge_softmax import edge_softmax_agg_autograd, edge_sof
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
+from repro_torch.kernels.moe_experts import moe_experts_cuda
 from repro_torch.kernels.ssd_scan import SsdScan, ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.stage2_score import (flatten_stage2_params, pack_stage2_params,
                                               stage2_score_cuda, unpack_stage2_pack)
@@ -150,32 +153,46 @@ def stage2_score(params, gnn_type, entity_emb, emb_mask, order_feats,
                                 gnn_type=gnn_type, slot_type=slot_type)
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
+                    scale: float | None = None):
     """Prefill attention.  q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh]; q rows
-    aligned to the end of the keys.  The plain version is the reference's
-    XLA path (``blockwise_attention`` over key blocks of min(512, Sk)).
-    Under grad: ``FlashAttention`` (the backward kernel on the card)."""
+    aligned to the end of the keys; the logits scaled by ``scale`` (default
+    ``Dh ** -0.5``).  The plain version is the reference's XLA path
+    (``blockwise_attention`` over key blocks of min(512, Sk)).  Under grad:
+    ``FlashAttention`` (the backward kernel on the card)."""
     cuda = _on_cuda(q)
     if not cuda and is_dtensor(q):
-        return shard_local(lambda *t: flash_attention(*t, causal, window), (q, k, v),
+        return shard_local(lambda *t: flash_attention(*t, causal, window, scale), (q, k, v),
                            ((0, 1),) * 3)
     if _wants_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, cuda)
+        return FlashAttention.apply(q, k, v, causal, window, cuda, scale)
     if cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
-    return flash_attention_plain(q, k, v, causal, window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+    return flash_attention_plain(q, k, v, causal, window, scale)
 
 
-def gqa_decode(q, k, v, kv_len=None, window: int | None = None):
+def gqa_decode(q, k, v, kv_len=None, window: int | None = None, scale: float | None = None):
     """One-token attention over the cache.  q: [B, Hq, Dh]; k/v:
-    [B, Hkv, S, Dh]; kv_len: [B] int32 valid lengths (None: all S)."""
+    [B, Hkv, S, Dh]; kv_len: [B] int32 valid lengths (None: all S); the
+    logits scaled by ``scale`` (default ``Dh ** -0.5``)."""
     if _on_cuda(q):
         refuse_grad("gqa_decode", q, k, v)
-        return gqa_decode_cuda(q, k, v, kv_len=kv_len, window=window)
+        return gqa_decode_cuda(q, k, v, kv_len=kv_len, window=window, scale=scale)
     if is_dtensor(q):
-        return shard_local(lambda *t: gqa_decode(*t, window=window), (q, k, v, kv_len),
-                           ((0, 1), (0, 1), (0, 1), (0, None)))
-    return ref.gqa_decode_ref(q, k, v, kv_len=kv_len, window=window)
+        return shard_local(lambda *t: gqa_decode(*t, window=window, scale=scale),
+                           (q, k, v, kv_len), ((0, 1), (0, 1), (0, 1), (0, None)))
+    return ref.gqa_decode_ref(q, k, v, kv_len=kv_len, window=window, scale=scale)
+
+
+def moe_experts(xs, ends, w_gate, w_up, w_down):
+    """The MoE's expert SwiGLUs over tokens sorted by expert: ``xs``
+    [rows, d], ``ends`` [E] int32 (each expert's segment end), weights
+    [E, d, f], [E, d, f], [E, f, d].  Returns [rows, d].  On the card three
+    grouped GEMMs (``moe_experts.moe_experts_cuda``), elsewhere a loop over
+    the experts (``ref.moe_experts_ref``)."""
+    if _on_cuda(xs):
+        return moe_experts_cuda(xs, ends, w_gate, w_up, w_down)
+    return ref.moe_experts_ref(xs, ends, w_gate, w_up, w_down)
 
 
 def ssd_scan(x, dt, a, b, c, d_skip=None, chunk: int = 64,

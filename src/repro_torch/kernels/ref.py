@@ -290,20 +290,22 @@ def mha_ref(q, k, v, causal=True, window=None, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, vv)
 
 
-def gqa_decode_ref(q, k, v, kv_len=None, window=None):
+def gqa_decode_ref(q, k, v, kv_len=None, window=None, scale=None):
     """Single-token decode attention: the plain version of the gqa_decode
     kernel, and the reference's inline XLA path (``models/attention.py``).
 
     q: [B, Hq, Dh]; k/v: [B, Hkv, S, Dh] (the cache); kv_len: [B] valid
     lengths (None = full).  ``window``: only the last ``window`` valid
-    positions attend.  Logits and the weighted sum in f32 (the
-    probabilities rounded to v's dtype first).  Returns [B, Hq, Dh].
+    positions attend.  ``scale``: the logits' (default ``Dh ** -0.5``).
+    Logits and the weighted sum in f32 (the probabilities rounded to v's
+    dtype first).  Returns [B, Hq, Dh].
     """
     b, hq, dh = q.shape
     hkv, s = k.shape[1], k.shape[2]
     rep = hq // hkv
     qg = q.reshape(b, hkv, rep, dh).float()
-    logits = torch.einsum("bgrd,bgsd->bgrs", qg, k.float()) * (dh ** -0.5)
+    logits = torch.einsum("bgrd,bgsd->bgrs", qg, k.float()) * (
+        dh ** -0.5 if scale is None else scale)
     pos = torch.arange(s, device=q.device)[None, :]
     if kv_len is None:
         valid = torch.ones((b, s), dtype=torch.bool, device=q.device)
@@ -385,8 +387,9 @@ def _attn_logits(qg, kg, valid, dead, scale):
     return torch.where(valid, s, fill)
 
 
-def attention_lse_ref(q, k, causal=True, window=None):
-    """Each q row's logsumexp over its scaled logits, [B, Hq, Sq] f32 in
+def attention_lse_ref(q, k, causal=True, window=None, scale=None):
+    """Each q row's logsumexp over its logits scaled by ``scale`` (default
+    ``Dh ** -0.5``), [B, Hq, Sq] f32 in
     natural-log units (f64 for f64 inputs): what the flash_attention forward kernel writes under
     grad, for its backward.  A dead row (no valid key, :func:`_attn_masks`)
     gets log(Sk), so that exp(0 - lse) is its uniform weight 1 / Sk."""
@@ -398,12 +401,13 @@ def attention_lse_ref(q, k, causal=True, window=None):
     out = []
     for g in range(hkv):
         hs = slice(g * rep, (g + 1) * rep)
-        s = _attn_logits(q[:, hs].to(acc), k[:, g].to(acc), valid, dead, dh ** -0.5)
+        s = _attn_logits(q[:, hs].to(acc), k[:, g].to(acc), valid, dead,
+                         dh ** -0.5 if scale is None else scale)
         out.append(torch.logsumexp(s, -1))
     return torch.cat(out, dim=1)
 
 
-def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None, scale=None):
     """Gradients of the prefill attention (``kernels.ops.flash_attention``)
     with respect to q, k and v, in closed form from the forward's output
     ``out`` and row logsumexp ``lse`` (:func:`attention_lse_ref`), in f32
@@ -413,14 +417,14 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True, window=None):
         ds = p * (dout v^T - delta),
         dq = scale ds k,  dk = scale ds^T q,  dv = p^T dout,
 
-    with s the scaled logits.  Masked entries have p = ds = 0; a dead row
-    has p = 1 / Sk on every key and ds = 0 (its logits are constants).  dk
-    and dv sum over a kv head's q heads in head order.  Returns (dq, dk, dv)
-    in the dtypes of q, k and v."""
+    with s the logits scaled by ``scale`` (default ``Dh ** -0.5``).  Masked
+    entries have p = ds = 0; a dead row has p = 1 / Sk on every key and
+    ds = 0 (its logits are constants).  dk and dv sum over a kv head's q
+    heads in head order.  Returns (dq, dk, dv) in the dtypes of q, k and v."""
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = hq // hkv
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     valid, dead = _attn_masks(sq, sk, causal, window, q.device)
     acc = _acc_dtype(q.dtype)
     delta = (dout.to(acc) * out.to(acc)).sum(-1)                     # [B, Hq, Sq]
@@ -855,3 +859,18 @@ def ssd_scan_bwd_mma_ref(x, dt, a, b, c, d_skip, dy, chunk: int = 64):
 
     return (unchunk(dx, x), unchunk(ddt, dt), da.to(a.dtype), unchunk(db.sum(3), b),
             unchunk(dc.sum(3), c), None if dd is None else dd.to(d_skip.dtype))
+
+
+def moe_experts_ref(xs, ends, w_gate, w_up, w_down):
+    """The plain version of the grouped expert products
+    (``kernels/moe_experts.py``): a loop over the experts, each expert's
+    SwiGLU on its segment of ``xs`` [rows, d] (rows sorted by expert,
+    segment ``e`` ending at ``ends[e]``), SiLU in f32 and cast back.
+    Returns [rows, d]."""
+    outs, start = [], 0
+    for e, end in enumerate(ends.tolist()):
+        seg = xs[start:end]
+        g = F.silu((seg @ w_gate[e]).to(torch.promote_types(seg.dtype, torch.float32)))
+        outs.append((g.to(seg.dtype) * (seg @ w_up[e])) @ w_down[e])
+        start = end
+    return torch.cat(outs)

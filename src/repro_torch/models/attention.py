@@ -10,6 +10,10 @@ as the reference has it: padded q heads are computed heads whose ``w_o``
 rows are zero; padded kv heads are tied replicas of logical kv heads (or
 zero heads when the padding is ragged).
 
+A NoPE layer (granite-4.0-h-small's) passes ``use_rope=False`` in prefill
+and decode, and a softmax scale other than ``Dh ** -0.5`` goes to the
+kernels as ``scale`` (q is not rescaled, so it is rounded once).
+
 Cross attention (``kv_x`` in prefill, ``cross=True`` in decode) takes K and
 V from another sequence (vision tokens, encoder frames): no mask, no
 window, RoPE on q only; in decode the cache holds that sequence's K/V,
@@ -91,7 +95,7 @@ ATTN_IMPLS = ("blockwise", "banded")
 
 
 def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
-               attn_impl: str = "blockwise"):
+               attn_impl: str = "blockwise", scale: float | None = None):
     """Full-sequence attention (prefill).  x: [B, S, d].
 
     ``kv_x`` [B, Sk, d] switches to cross attention: K/V from ``kv_x``, RoPE
@@ -104,7 +108,8 @@ def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
     configuration such as mixtral-8x22b).  Both take
     ``kernels.ops.flash_attention`` with the config's window: the card's
     kernel visits only the key tiles inside the band either way, and the
-    plain version masks the same band, so the two give one function."""
+    plain version masks the same band, so the two give one function.
+    ``scale``: the softmax's (default ``Dh ** -0.5``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     b, s, _ = x.shape
@@ -117,12 +122,13 @@ def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     self_attn = kv_x is None
     out = ops.flash_attention(q, k, v, causal=causal and self_attn,
-                              window=cfg.window if self_attn else None)
+                              window=cfg.window if self_attn else None, scale=scale)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return out @ params["wo"], (k, v)
 
 
-def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False):
+def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False,
+                use_rope: bool = True, scale: float | None = None):
     """Single-token decode.  x1: [B, 1, d]; cache: dict(k, v) with
     k/v: [B, Hkv, S_max, Dh]; pos: the current position (a Python int, the
     same for every sequence of the batch).
@@ -136,7 +142,9 @@ def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False):
 
     ``cross=True``: the cache holds the static K/V of the encoder frames or
     vision tokens; q gets no RoPE, nothing is written, and the attention
-    runs over every slot (``kv_len`` None, no window).
+    runs over every slot (``kv_len`` None, no window).  ``use_rope=False``
+    (a NoPE layer): neither q nor the new key is rotated.  ``scale``: the
+    softmax's (default ``Dh ** -0.5``).
     Returns (out [B, 1, d], cache).
     """
     hq, hkv, dh = cfg.physical_heads, cfg.physical_kv_heads, cfg.head_dim
@@ -146,16 +154,18 @@ def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False):
         q = q + params["bq"]
     q = q.reshape(b, 1, hq, dh).transpose(1, 2)
     if cross:
-        out = ops.gqa_decode(q[:, :, 0].contiguous(), cache["k"], cache["v"])
+        out = ops.gqa_decode(q[:, :, 0].contiguous(), cache["k"], cache["v"], scale=scale)
         return out.reshape(b, 1, hq * dh) @ params["wo"], cache
     k1 = x1 @ params["wk"]
     v1 = x1 @ params["wv"]
     if cfg.qkv_bias:
         k1 = k1 + params["bk"]
         v1 = v1 + params["bv"]
-    at = torch.full((1, 1, 1), pos, device=x1.device)
-    q = apply_rope(q, at, cfg.rope_theta)
-    k1 = apply_rope(k1.reshape(b, 1, hkv, dh).transpose(1, 2), at, cfg.rope_theta)
+    k1 = k1.reshape(b, 1, hkv, dh).transpose(1, 2)
+    if use_rope:
+        at = torch.full((1, 1, 1), pos, device=x1.device)
+        q = apply_rope(q, at, cfg.rope_theta)
+        k1 = apply_rope(k1, at, cfg.rope_theta)
     v1 = v1.reshape(b, 1, hkv, dh).transpose(1, 2)
     k, v = cache["k"], cache["v"]
     cache_len = k.shape[2]
@@ -169,5 +179,5 @@ def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False):
     # valid slot attends (softmax is permutation-invariant, RoPE was applied
     # at absolute positions before the write)
     out = ops.gqa_decode(q[:, :, 0].contiguous(), k, v, kv_len=kv_len,
-                         window=None if ring else cfg.window)
+                         window=None if ring else cfg.window, scale=scale)
     return out.reshape(b, 1, hq * dh) @ params["wo"], cache

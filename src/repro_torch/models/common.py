@@ -124,7 +124,7 @@ def ffn_apply(params, x, ffn_type):
 # ---------------------------------------------------------------------------
 
 def blockwise_attention(q, k, v, *, causal=True, window=None, block_k=512,
-                        q_offset=None):
+                        q_offset=None, scale=None):
     """q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh].  GQA via head grouping
     (no K/V repetition is materialized).  Returns [B, Hq, Sq, Dh].
 
@@ -132,11 +132,12 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_k=512,
     ``-1e30`` for masked logits and ``/ max(l, 1e-30)`` at the end, as the
     reference.  ``q_offset``: absolute position of q row 0 (default aligns
     q to the end of the kv sequence, the prefill/train convention).
+    ``scale``: the logits' scale (default ``Dh ** -0.5``).
     """
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = hq // hkv
-    scale = dh ** -0.5
+    scale = dh ** -0.5 if scale is None else scale
     if q_offset is None:
         q_offset = sk - sq
     kv_valid = sk

@@ -73,15 +73,16 @@ def _ssm_inputs(params, cfg, conv_out, dt):
     return xs, bmat, cmat, dt, a
 
 
-def _gate_out(params, y, z):
-    y = rmsnorm(y * F.silu(wide(z)).to(y.dtype), params["norm_scale"])
+def _gate_out(params, y, z, eps):
+    y = rmsnorm(y * F.silu(wide(z)).to(y.dtype), params["norm_scale"], eps)
     return y @ params["w_out"]
 
 
-def mamba_apply(params, cfg, x, *, return_state=False):
+def mamba_apply(params, cfg, x, *, return_state=False, eps=1e-6):
     """Full-sequence path.  x: [B, S, d] -> ([B, S, d], state or None).
 
-    The state, when asked for, is {conv [B, K-1, W], ssm [B, H, N, P] f32}."""
+    The state, when asked for, is {conv [B, K-1, W], ssm [B, H, N, P] f32}.
+    ``eps``: the gated RMSNorm's."""
     b, s, _ = x.shape
     proj = x @ params["w_in"]
     z, conv_in, dt = _split_proj(cfg, proj)
@@ -90,7 +91,7 @@ def mamba_apply(params, cfg, x, *, return_state=False):
     xs, bmat, cmat = xs.contiguous(), bmat.contiguous(), cmat.contiguous()
     y = ops.ssd_scan(xs, dt, a, bmat, cmat, params["d_skip"], chunk=cfg.ssd_chunk,
                      compute_dtype=torch_dtype(cfg.ssd_compute_dtype))
-    out = _gate_out(params, y.reshape(b, s, cfg.d_inner), z)
+    out = _gate_out(params, y.reshape(b, s, cfg.d_inner), z, eps)
     if not return_state:
         return out, None
     # shard-local on a mesh (dist.sharding.shard_local): independent over the
@@ -122,9 +123,9 @@ def _final_state(xs, dt, a, bmat):
     return state.reshape(bsz, -1, h, p).transpose(1, 2).contiguous()
 
 
-def mamba_decode(params, cfg, x1, cache):
+def mamba_decode(params, cfg, x1, cache, eps=1e-6):
     """Single-token step.  x1: [B, 1, d]; cache: {conv [B,K-1,W], ssm [B,H,N,P]}.
-    Returns (y [B, 1, d], new cache)."""
+    Returns (y [B, 1, d], new cache).  ``eps``: the gated RMSNorm's."""
     b = x1.shape[0]
     proj = x1 @ params["w_in"]                                     # [B, 1, ...]
     z, conv_in, dt = _split_proj(cfg, proj)
@@ -137,4 +138,4 @@ def mamba_decode(params, cfg, x1, cache):
     y = torch.einsum("bhnp,bn->bhp", ssm, cmat.float())
     y = y + xs32 * params["d_skip"][None, :, None]
     y = y.reshape(b, 1, cfg.d_inner).to(x1.dtype)
-    return _gate_out(params, y, z), {"conv": conv_state, "ssm": ssm}
+    return _gate_out(params, y, z, eps), {"conv": conv_state, "ssm": ssm}

@@ -1,6 +1,21 @@
-"""Mixture-of-Experts layer: top-k router with sort-based capacity dispatch.
+"""Mixture-of-Experts layer: a top-k router and two dispatches, by capacity
+and dropless.
 
-The reference's ``repro.models.moe`` with tensors.  Every expert GEMM stays
+Which configuration takes which path:
+
+* capacity (:func:`moe_apply`): phi3.5-moe-42b-a6.6b and mixtral-8x22b,
+  the ``decoder`` group's MoE layers.  It is the reference's
+  ``repro.models.moe``, whose dispatch, drops and counts the port's
+  tests and dry-run hold it to, so it stays as it is for the two; with 16
+  or 8 experts at top-2 its ``[E, C, d]`` buffer costs little.
+* dropless (:func:`moe_apply_dropless`): granite-4.0-h-small, every layer
+  of the ``granite_hybrid`` group.  The published model drops nothing,
+  and at its 72 experts top-10 the capacity path could not serve it: at
+  8,192 tokens a capacity factor of 1.25 gives each expert 1,423 slots
+  and drops whatever is routed beyond them, and full capacity would be an
+  ``[E, k·T, d]`` buffer of 48 GB.
+
+The capacity path.  The reference's ``repro.models.moe`` with tensors.  Every expert GEMM stays
 dense over a fixed ``[E, C, d]`` expert buffer filled by a gather (plain
 batched matrix products, ``torch.bmm``: the reference computes them outside
 any Pallas kernel).  Routing runs as the reference's single group (its
@@ -17,6 +32,14 @@ Order is explicit where the reference's ops define it: the top-k breaks
 ties toward the lower expert index (``jax.lax.top_k``) by a stable
 descending sort, and the slot ranks come from a stable argsort
 (``jnp.argsort``), so two assignments to one expert keep token order.
+
+The dropless path routes as the capacity path (the f32 softmax, its top k
+renormalised: the softmax over the top k logits), sorts the T·k
+assignments by expert (a stable argsort; the segment ends a prefix sum of
+the counts, on the device, never read by the host), gathers the tokens
+once and runs each expert's SwiGLU on its segment
+(``kernels.ops.moe_experts``: three grouped GEMMs on the card, a loop over
+the experts elsewhere), then combines each token's k outputs by its gates.
 """
 from __future__ import annotations
 
@@ -24,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import model_axis_size, shard_spec
+from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, torch_dtype, wide
 from repro_torch.utils.padding import ceil_div
 
@@ -42,7 +66,10 @@ def moe_init(gen: torch.Generator, cfg, device=None):
 
 
 def moe_capacity(cfg, tokens: int, full_capacity: bool = False) -> int:
-    """Slots per expert for ``tokens`` tokens."""
+    """Slots per expert for ``tokens`` tokens, on the capacity path
+    (phi3.5-moe and mixtral: the reference's dispatch, which the port keeps
+    for them).  granite-4.0-h-small takes :func:`moe_apply_dropless`, which
+    has no capacity."""
     k = cfg.experts_per_token
     if full_capacity:
         return k * tokens
@@ -151,3 +178,27 @@ def moe_apply_dense_ref(params, cfg, x):
     u = torch.einsum("td,edf->tef", x, params["w_up"])
     y_e = torch.einsum("tef,efd->ted", g * u, params["w_down"])
     return torch.einsum("ted,te->td", y_e.float(), dense_gates).to(x.dtype)
+
+
+def moe_apply_dropless(params, cfg, x):
+    """x: [T, d] flattened tokens.  Returns (y [T, d], aux_loss scalar f32):
+    every one of the T·k assignments computed, none dropped.
+
+    The router in f32 as :func:`moe_apply`; the assignments sorted by
+    expert (``order``), the tokens gathered once in that order, the
+    experts' products over their segments (``kernels.ops.moe_experts``),
+    each assignment's output gathered back to its (token, slot) and the k
+    of a token summed by its gates in the parameters' dtype."""
+    t, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs, gate_vals, expert_idx = moe_route(params, x, k)
+    counts = expert_counts(expert_idx, e)
+    aux = e * torch.sum(probs.mean(0) * (counts.float() / (t * k)))
+    order = torch.argsort(expert_idx.reshape(-1), stable=True)
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    ys = ops.moe_experts(x[order // k], ends, params["w_gate"], params["w_up"],
+                         params["w_down"])
+    rank = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=x.device))
+    contrib = ys[rank].reshape(t, k, d)
+    y = torch.einsum("tkd,tk->td", contrib, gate_vals.to(contrib.dtype))
+    return y.to(x.dtype), aux

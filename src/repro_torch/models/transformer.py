@@ -1,5 +1,6 @@
 """The zoo's composable model: the ``decoder`` (dense and MoE), ``mamba``,
-``zamba_super``, ``vlm_super`` and audio ``enc``/``dec`` groups.
+``zamba_super``, ``vlm_super``, ``granite_hybrid`` and audio ``enc``/``dec``
+groups.
 
 The reference's ``repro.models.transformer`` with tensors.  A config
 compiles to a *block program*, an ordered list of groups, each a stack of
@@ -14,6 +15,8 @@ into its slice):
   hybrid      [('zamba_super', L // k)] + [('mamba', L % k)]   (shared attn)
   vlm         [('vlm_super', L // k)]      (k-1 self layers + 1 cross layer)
   audio       encoder [('enc', L)] + decoder [('dec', L)]
+  granite_hybrid [('granite_hybrid', L)]   (a Mamba2 or attention mixer a
+              layer, as ``layer_pattern`` orders them, each then an MoE)
 
 A ``decoder`` layer is attention then an FFN, or the MoE layer
 (``models.moe``) for a ``moe`` config, whose load-balancing loss the
@@ -28,6 +31,18 @@ by ``tanh(gate)`` (an f32 leaf); the audio model encodes the frames
 runs only the ``dec`` group over tokens, each layer self attention, cross
 attention over the encoder's output and an FFN.  The cross layers' decode
 caches hold the static K/V of the vision tokens or the encoder's output.
+A ``granite_hybrid`` layer (granite-4.0-h-small, ``configs.GraniteHybridConfig``)
+is ``h += r·mixer(rms(h, ln1))`` then ``h += r·(moe(x) + shared(x))`` with
+``x = rms(h, ln2)``: the mixer Mamba2 (``M``) or NoPE GQA attention at the
+softmax scale ``attention_multiplier`` (``A``), the MoE dropless
+(``models.moe.moe_apply_dropless``), the shared expert a SwiGLU, ``r`` the
+``residual_multiplier``, every RMSNorm at ``rms_norm_eps``; its params hold
+the stacks ``mamba`` and ``attn`` of the two kinds of mixer, in pattern
+order, beside the per-layer ``ln1``, ``ln2``, ``moe`` and ``shared``, and
+its cache the Mamba states of the ``M`` layers and the K/V of the ``A``
+layers.  Its embedding is scaled by ``embedding_multiplier``, the head is
+the embedding's transpose and the logits are divided by
+``logits_scaling``.
 There is no ``use_pallas``: the tensors' device picks the kernel path.
 The reference's layout hints (``dist.sharding.shard_hint``) stand where it
 has them; they act only on the dry-run's ``DTensor``s over a mesh
@@ -52,7 +67,7 @@ from repro_torch.models.common import (dense_init, ffn_apply, ffn_init,
                                       torch_dtype)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_apply, mamba_decode, mamba_init
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import moe_apply, moe_apply_dropless, moe_init
 from repro_torch.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trace import span
@@ -80,6 +95,13 @@ def build_program(cfg: ArchConfig) -> list[tuple[str, int]]:
         return [("vlm_super", cfg.num_layers // k)]
     if cfg.arch_type == "audio":
         return [("enc", cfg.num_layers), ("dec", cfg.num_layers)]
+    if cfg.arch_type == "granite_hybrid":
+        if len(cfg.layer_pattern) != cfg.num_layers or set(cfg.layer_pattern) - {"M", "A"}:
+            raise ValueError(f"layer_pattern {cfg.layer_pattern!r} must give each of the "
+                             f"{cfg.num_layers} layers M or A")
+        if not cfg.tie_word_embeddings:
+            raise ValueError("the granite_hybrid group runs its head tied to the embedding")
+        return [("granite_hybrid", cfg.num_layers)]
     raise ValueError(cfg.arch_type)
 
 
@@ -184,6 +206,27 @@ def _stack_init(init_fn, gen, n, cfg, device):
     return _stack([init_fn(gen, cfg, device=device) for _ in range(n)])
 
 
+def _granite_hybrid_layer_init(gen, cfg, device=None):
+    """A granite_hybrid layer's parts beside its mixer: the two norms, the
+    MoE and the shared expert."""
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "moe": moe_init(gen, cfg, device=device),
+        "shared": ffn_init(gen, cfg.d_model, cfg.shared_d_ff, "swiglu", dtype, device=device),
+    }
+
+
+def _granite_hybrid_init(gen, cfg, device=None):
+    """The layers' stacks and the two stacks of mixers, in pattern order."""
+    return {
+        **_stack_init(_granite_hybrid_layer_init, gen, cfg.num_layers, cfg, device),
+        "mamba": _stack_init(mamba_init, gen, cfg.layer_pattern.count("M"), cfg, device),
+        "attn": _stack_init(attn_init, gen, cfg.layer_pattern.count("A"), cfg, device),
+    }
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
     """Parameter tree of ``cfg`` on ``device`` (default: CUDA).
 
@@ -195,17 +238,19 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
     ``groups/zamba_super/mamba/w_in`` has leading axes ``[n_super,
     attn_every]``, ``groups/vlm_super/self/attn/wq`` ``[n_super,
     cross_attn_every - 1]``, ``groups/vlm_super/cross/gate`` ``[n_super, 1]``
-    in f32); the values are not.
+    in f32); the values are not.  A ``granite_hybrid`` configuration has
+    no ``head`` (it is tied to ``embed``).
     """
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     v = cfg.physical_vocab
     params = {
         "embed": dense_init(gen, (v, cfg.d_model), dtype, scale=0.02, device=dev),
-        "head": dense_init(gen, (cfg.d_model, v), dtype, device=dev),
         "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         "groups": {},
     }
+    if cfg.arch_type != "granite_hybrid":
+        params["head"] = dense_init(gen, (cfg.d_model, v), dtype, device=dev)
     for gname, n in build_program(cfg):
         if gname in ("decoder", "enc"):
             params["groups"][gname] = _stack_init(_decoder_layer_init, gen, n, cfg, dev)
@@ -222,6 +267,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
                                             cfg, dev) for _ in range(n)]),
                 "cross": _stack_init(_cross_layer_init, gen, n, cfg, dev),
             }
+        elif gname == "granite_hybrid":
+            params["groups"][gname] = _granite_hybrid_init(gen, cfg, dev)
         else:  # dec
             params["groups"][gname] = _stack_init(_dec_layer_init, gen, n, cfg, dev)
     return params
@@ -299,6 +346,54 @@ def _mamba_stack(gp, cfg, h, want_cache, use_remat=False):
     return h, (_stack(states) if want_cache else None)
 
 
+def _moe_shared(p, cfg, x):
+    """A granite_hybrid layer's feed-forward part on ``x`` [B, S, d]: the
+    dropless MoE plus the shared expert.  Returns (out, aux)."""
+    b, s, d = x.shape
+    y, aux = moe_apply_dropless(p["moe"], cfg, x.reshape(b * s, d))
+    return y.reshape(b, s, d) + ffn_apply(p["shared"], x, "swiglu"), aux
+
+
+def _granite_hybrid_layer(p, mix, kind, cfg, h, want_cache, attn_impl):
+    """One granite_hybrid layer: the mixer ``mix`` of ``kind`` (``M`` or
+    ``A``) in the ``mamba`` or ``attention`` span, the MoE and shared expert
+    in the ``moe`` span, each added at the residual multiplier.  Returns (h,
+    the mixer's cache or None, aux)."""
+    eps, r = cfg.rms_norm_eps, cfg.residual_multiplier
+    if kind == "M":
+        with span("mamba"):
+            y, state = mamba_apply(mix, cfg, rmsnorm(h, p["ln1"], eps),
+                                   return_state=want_cache, eps=eps)
+    else:
+        with span("attention"):
+            y, (k, v) = attn_apply(mix, cfg, rmsnorm(h, p["ln1"], eps),
+                                   use_rope=cfg.position_embedding_type != "nope",
+                                   attn_impl=attn_impl, scale=cfg.attention_multiplier)
+        state = {"k": k, "v": v} if want_cache else None
+    h = h + y * r
+    with span("moe"):
+        f, aux = _moe_shared(p, cfg, rmsnorm(h, p["ln2"], eps))
+    return h + f * r, state, aux
+
+
+_HYBRID_LAYER = ("ln1", "ln2", "moe", "shared")
+
+
+def _granite_hybrid_stack(gp, cfg, h, want_cache, attn_impl, use_remat):
+    """The granite_hybrid group's layers in pattern order, each through
+    :func:`_body`.  Returns (h, cache or None, aux summed)."""
+    mixers = {"M": iter(_layers(gp["mamba"])), "A": iter(_layers(gp["attn"]))}
+    states = {"M": [], "A": []}
+    aux_total = 0.0
+    for p, kind in zip(_layers({n: gp[n] for n in _HYBRID_LAYER}), cfg.layer_pattern):
+        h, state, aux = _body(use_remat, _granite_hybrid_layer, p, next(mixers[kind]), kind,
+                              cfg, h, want_cache, attn_impl)
+        states[kind].append(state)
+        aux_total = aux_total + aux
+    cache = {"mamba": _stack(states["M"]), "attn": _stack(states["A"])} if want_cache else None
+    return h, cache, aux_total
+
+
 def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blockwise",
                 use_remat=False):
     """Run the block program over the groups ``params`` holds (the audio
@@ -350,6 +445,10 @@ def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blo
                                  want_cache=want_cache)
                 outs.append(cache)
             caches[gname] = _stack(outs) if want_cache else None
+        elif gname == "granite_hybrid":
+            h, caches[gname], aux = _granite_hybrid_stack(gp, cfg, h, want_cache, attn_impl,
+                                                          use_remat)
+            aux_total = aux_total + aux
     return h, (caches if want_cache else {}), aux_total
 
 
@@ -367,6 +466,22 @@ def _lookup(tokens, table):
     return table[tokens]
 
 
+def _embed(cfg, h):
+    """``h``, the embedding rows, scaled by a granite_hybrid configuration's
+    ``embedding_multiplier``."""
+    return h * cfg.embedding_multiplier if cfg.arch_type == "granite_hybrid" else h
+
+
+def _logits(params, cfg, h):
+    """The final norm and the head: ``head``, or for a granite_hybrid
+    configuration the embedding's transpose, the logits divided by its
+    ``logits_scaling``."""
+    if cfg.arch_type != "granite_hybrid":
+        return shard_hint(_norm(cfg, h, params["final_ln"]) @ params["head"], "logits")
+    out = rmsnorm(h, params["final_ln"], cfg.rms_norm_eps) @ params["embed"].T
+    return shard_hint(out.div_(cfg.logits_scaling), "logits")
+
+
 def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
             attn_impl: str = "blockwise", use_remat: bool = False):
     """tokens: [B, S] int; ``extra``: ``{"vision": [B, Tv, d]}`` for a vlm
@@ -381,8 +496,9 @@ def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
     # on a mesh the lookup is shard-local over the batch, the table gathered
     # first (as FSDP gathers a weight before its use): torch 2.11's DTensor
     # has no working rule for the lookup's gradient
-    h = shard_hint(shard_local(_lookup, (tokens.long(), params["embed"]),
-                               ((0, None), (None, None)), out_dims=(0, None)), "act")
+    h = shard_hint(_embed(cfg, shard_local(_lookup, (tokens.long(), params["embed"]),
+                                                   ((0, None), (None, None)),
+                                                   out_dims=(0, None))), "act")
     if cfg.arch_type == "audio":
         memory = _encode(params, cfg, extra["frames"], use_remat)
         dec_params = {"groups": {"dec": params["groups"]["dec"]}}
@@ -394,8 +510,7 @@ def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
     else:
         h, caches, aux = _run_groups(params, cfg, h, extra, want_cache=want_cache,
                                      attn_impl=attn_impl, use_remat=use_remat)
-    logits = shard_hint(_norm(cfg, h, params["final_ln"]) @ params["head"], "logits")
-    return logits, caches, aux
+    return _logits(params, cfg, h), caches, aux
 
 
 def forward_train(params, cfg: ArchConfig, batch, *, use_remat: bool = True,
@@ -532,6 +647,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
         elif gname == "dec":
             caches[gname] = {"self": attn_zeros(n),
                              "cross": attn_zeros(n, slots=extra_shapes.get("memory_len", 1024))}
+        elif gname == "granite_hybrid":
+            caches[gname] = {"mamba": mamba_states(cfg.layer_pattern.count("M")),
+                             "attn": attn_zeros(cfg.layer_pattern.count("A"))}
         # 'enc' has no decode-time cache
     return caches
 
@@ -554,13 +672,39 @@ def _mamba_stack_decode(gp, cfg, h, cstack):
     return h
 
 
+def _granite_hybrid_decode(gp, cfg, h, cstack, pos):
+    """Decode through the granite_hybrid group's layers, writing each Mamba2
+    layer's new state and each attention layer's new K/V row into
+    ``cstack`` in place."""
+    eps, r = cfg.rms_norm_eps, cfg.residual_multiplier
+    layers = {n: gp[n] for n in _HYBRID_LAYER}
+    seen = {"M": 0, "A": 0}
+    for i, kind in enumerate(cfg.layer_pattern):
+        p, j = _layer(layers, i), seen[kind]
+        seen[kind] += 1
+        x = rmsnorm(h, p["ln1"], eps)
+        if kind == "M":
+            mc = cstack["mamba"]
+            y, c = mamba_decode(_layer(gp["mamba"], j), cfg, x, _layer(mc, j), eps=eps)
+            mc["conv"][j] = c["conv"]
+            mc["ssm"][j] = c["ssm"]
+        else:
+            y, _ = attn_decode(_layer(gp["attn"], j), cfg, x, _layer(cstack["attn"], j), pos,
+                               use_rope=cfg.position_embedding_type != "nope",
+                               scale=cfg.attention_multiplier)
+        h = h + y * r
+        f, _ = _moe_shared(p, cfg, rmsnorm(h, p["ln2"], eps))
+        h = h + f * r
+    return h
+
+
 def decode_step(params, cfg: ArchConfig, token, caches):
     """One decode step.  token: [B] int.  Returns (logits [B, Vphys], caches).
 
     ``caches`` is updated in place (Mamba states, the new K/V rows, ``pos``)
     and returned."""
     pos = caches["pos"]
-    h = shard_hint(params["embed"][token.long()[:, None]], "act")
+    h = shard_hint(_embed(cfg, params["embed"][token.long()[:, None]]), "act")
     for gname, n in build_program(cfg):
         if gname == "enc":
             continue
@@ -586,6 +730,8 @@ def decode_step(params, cfg: ArchConfig, token, caches):
                                        _layer(cstack["cross"], i), pos, cross=True)
                 h = h + torch.tanh(xp["gate"]).to(h.dtype) * a_out
                 h = h + ffn_apply(xp["ffn"], _norm(cfg, h, xp["ln2"]), cfg.ffn_type)
+        elif gname == "granite_hybrid":
+            h = _granite_hybrid_decode(gp, cfg, h, cstack, pos)
         else:  # dec
             for i in range(n):
                 p, c = _layer(gp, i), _layer(cstack, i)
@@ -595,6 +741,6 @@ def decode_step(params, cfg: ArchConfig, token, caches):
                                        pos, cross=True)
                 h = h + x_out
                 h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
-    logits = shard_hint(_norm(cfg, h, params["final_ln"]) @ params["head"], "logits")[:, 0]
+    logits = _logits(params, cfg, h)[:, 0]
     caches["pos"] = pos + 1
     return logits, caches
