@@ -63,7 +63,11 @@
    prompt), at the cross-attention shapes of step 13 and at ragged ones,
    f32 and bf16, timed beside their bounds and
    ``scaled_dot_product_attention`` as a yardstick (with a boolean mask
-   where a window or per-sequence ``kv_len`` needs one).
+   where a window or per-sequence ``kv_len`` needs one).  Then ``rope``
+   against its plain version (forward bit for bit, backward within
+   tolerance and in the input's layout) at granite-3-2b's prefill shapes
+   (timed beside the bytes bound), Dh 128, decode at positions 4,095 and
+   100,000, the zoo's three thetas and ragged widths.
 7. Serves zamba2-1.2b at full width and depth in bf16 through
    ``repro_torch.launch.serve.serve`` (random weights from a seed): prefill
    4 prompts of 512 tokens, decode 32 tokens, with the launch counters
@@ -1176,7 +1180,8 @@ def training(dev, batches, split, feat_dim: int) -> dict:
 def zoo_kernel_checks(dev) -> dict:
     """The zoo's three kernels against their plain versions on the card: at
     the zamba2-1.2b serving shapes (timed, with bounds and the library
-    yardstick) and at ragged shapes (checked only), in f32 and bf16."""
+    yardstick) and at ragged shapes (checked only), in f32 and bf16; then
+    ``rope`` at the decoder group's shapes (:func:`rope_checks`)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1440,11 +1445,110 @@ def zoo_kernel_checks(dev) -> dict:
         gqa_case(2, 8, 2, 65, 128, None, None, dtype, timed=False)
     # f32 takes any N and P: N and P not multiples of 4 take its scalar loads
     ssd_case(1, 70, 2, 6, 10, torch.float32, timed=False)
+    results["rope"] = rope_checks(dev, gen, failures)
     torch.cuda.synchronize()
     if failures:
         raise AssertionError(f"{len(failures)} zoo kernel case(s) out of tolerance:\n"
                              + "\n".join(failures))
     return results
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in units in the last place between two tensors
+    of one float dtype (same-signed values: their bit patterns' distance)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return int((a.view(ints).long() - b.view(ints).long()).abs().max()) if a.numel() else 0
+
+
+def rope_checks(dev, gen, failures: list) -> list:
+    """``rope`` against its plain version on the card (``ref.rope_ref``, the
+    eager chain the models ran before), x the projection's transposed view
+    of [B, S, H, Dh]: granite-3-2b's prefill (32/8 heads, Dh 64, 4 x 2,048
+    and 2 x 4,096), Dh 128 (olmo, yi), decode at S = 1 (positions 4,095 and
+    100,000), the three thetas of the zoo, and ragged widths (the kernel's
+    one-element path).  The forward should give the same bits (where not,
+    the largest distance in ulps, and whether the kernel's cosines and
+    sines, read back by rotating a unit vector, equal the plain chain's);
+    the backward (the rotation by the negated angles, written in x's
+    layout) within TOL of autograd through the plain version.  The prefill
+    shapes are timed beside their bytes bound and the plain chain."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rope import freq_table, rope_cuda
+
+    rows = []
+
+    def case(b, h, s, dh, pos0, theta, dtype, timed=False, view=True):
+        name = str(dtype).split(".")[-1]
+        base = torch.randn(b, s, h, dh, generator=gen).to(dev, dtype)
+        x = base.transpose(1, 2) if view else base.transpose(1, 2).contiguous()
+        out = rope_cuda(x, pos0, theta)
+        want = ref.rope_ref(x, pos0, theta)
+        shape = (f"B={b} H={h} S={s} Dh={dh} pos0={pos0} theta={theta:g} "
+                 f"{'view' if view else 'contiguous'} {name}")
+        row = dict(shape=shape, same_bits=bool(torch.equal(out, want)),
+                   max_abs_err=float((out.float() - want.float()).abs().max()),
+                   max_ulps=_ulps(out, want), contiguous=out.is_contiguous())
+        try:
+            compare(out, want, name)
+        except AssertionError as e:
+            failures.append(f"rope {shape}: {e}")
+        if not row["same_bits"]:
+            # x1 = 1, x2 = 0: the kernel writes its cosines, then its sines
+            unit = torch.cat([torch.ones(1, 1, s, dh // 2), torch.zeros(1, 1, s, dh // 2)],
+                             -1).to(dev)
+            trig = rope_cuda(unit, pos0, theta)[0, 0]
+            angles = torch.arange(pos0, pos0 + s, device=dev)[:, None].float() \
+                * freq_table(dh, float(theta), dev)
+            row["cos_same"] = bool(torch.equal(trig[:, :dh // 2], torch.cos(angles)))
+            row["sin_same"] = bool(torch.equal(trig[:, dh // 2:], torch.sin(angles)))
+        dy = torch.randn(b, h, s, dh, generator=gen).to(dev, dtype)
+        dx = rope_cuda(dy, pos0, theta, inverse=True, out_stride=x.stride())
+        xr = x.detach().requires_grad_(True)
+        ref.rope_ref(xr, pos0, theta).backward(dy)
+        try:
+            row["bwd_max_abs_err"] = compare(dx, xr.grad, name)
+        except AssertionError as e:
+            failures.append(f"rope backward {shape}: {e}")
+            row["bwd_max_abs_err"] = float((dx.float() - xr.grad.float()).abs().max())
+        row["bwd_in_x_layout"] = dx.stride() == x.stride()
+        if not row["bwd_in_x_layout"]:
+            failures.append(f"rope backward {shape}: strides {dx.stride()}, x's {x.stride()}")
+        line = (f"rope            {shape:<52} same bits {row['same_bits']} "
+                f"(max {row['max_ulps']} ulp, max|d| {row['max_abs_err']:.2e}"
+                + (f", cos same {row['cos_same']}, sin same {row['sin_same']}"
+                   if not row["same_bits"] else "")
+                + f"); bwd max|d| {row['bwd_max_abs_err']:.2e} in x's layout "
+                f"{row['bwd_in_x_layout']}")
+        if timed:
+            nbytes = tensor_bytes(x, out) + dh // 2 * 4
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * x.numel(), dtype)
+            row["ms"] = time_ms(lambda: rope_cuda(x, pos0, theta))
+            row["bwd_ms"] = time_ms(lambda: rope_cuda(dy, pos0, theta, inverse=True,
+                                                      out_stride=x.stride()))
+            row["plain_ms"] = time_ms(lambda: ref.rope_ref(x, pos0, theta))
+            line += (f"\n                kernel {row['ms'] * 1e3:8.2f} us  bwd "
+                     f"{row['bwd_ms'] * 1e3:8.2f} us  plain {row['plain_ms'] * 1e3:8.2f} us  "
+                     f"bound {row['bound_ms'] * 1e3:6.2f} us ({row['bound_by']}): "
+                     f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+        print(line)
+        rows.append(row)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s in ((4, 2048), (2, 4096)):      # granite-3-2b's prefill cells: q, k
+            case(b, 32, s, 64, 0, 1e4, dtype, timed=True)
+            case(b, 8, s, 64, 0, 1e4, dtype, timed=True)
+        case(4, 16, 512, 128, 0, 1e4, dtype)      # olmo-1b
+        case(4, 56, 512, 128, 0, 5e6, dtype)      # yi-34b
+        case(4, 64, 512, 128, 0, 5e5, dtype)      # llama-3.2-vision
+        for pos0, theta in ((4095, 1e4), (100_000, 1e4), (4095, 5e5), (100_000, 5e6)):
+            case(4, 32, 1, 64, pos0, theta, dtype)
+            case(4, 8, 1, 128, pos0, theta, dtype)
+        # ragged: Dh 72 (36 pairs: bf16 takes one element a load), Dh 6, a
+        # contiguous input, S past a block
+        case(2, 3, 17, 72, 5, 1e4, dtype)
+        case(1, 2, 33, 6, 0, 5e5, dtype)
+        case(2, 4, 300, 64, 7, 1e4, dtype, view=False)
+    return rows
 
 
 def _attn_launches(cfg) -> tuple[int, int]:
@@ -1461,6 +1565,18 @@ def _attn_launches(cfg) -> tuple[int, int]:
     return 0, 0
 
 
+def _rope_launches(cfg) -> tuple[int, int]:
+    """``rope`` launches per prefill and per decode step: two (q and the
+    keys) per self-attention application, none in cross attention or in a
+    NoPE model."""
+    if getattr(cfg, "position_embedding_type", "rope") == "nope":
+        return 0, 0
+    n_prefill, n_step = _attn_launches(cfg)
+    cross = {"vlm": cfg.num_layers // max(cfg.cross_attn_every, 1),
+             "audio": cfg.num_layers}.get(cfg.arch_type, 0)
+    return 2 * (n_prefill - cross), 2 * (n_step - cross)
+
+
 def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
               warm: bool = False, profile: bool = True, frames: int = LAUNCHER_FRAMES) -> dict:
     """``cfg`` with random weights served through ``serve()`` on the card:
@@ -1469,7 +1585,8 @@ def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
     counters are zeroed just before the run and read just after, and must
     be exactly one ``flash_attention`` per attention application of the
     prefill, one ``gqa_decode`` per attention application of each step
-    (:func:`_attn_launches`), one ``ssd_scan`` per Mamba2 layer and nothing
+    (:func:`_attn_launches`), two ``rope`` per self-attention application
+    (:func:`_rope_launches`), one ``ssd_scan`` per Mamba2 layer and nothing
     else; every logit finite.  With ``profile``, where the time of prefill
     and of a decode step goes (the same weights and inputs,
     ``torch.profiler``)."""
@@ -1489,9 +1606,11 @@ def serve_row(dev, cfg, batch: int, seq: int, tokens: int, *, label: str = "",
     counts = dict(_build.LAUNCHES)
 
     n_prefill, n_step = _attn_launches(cfg)
+    rope_prefill, rope_step = _rope_launches(cfg)
     expected = dict.fromkeys(counts, 0)
     expected.update(ssd_scan=cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0,
-                    flash_attention=n_prefill, gqa_decode=n_step * tokens)
+                    flash_attention=n_prefill, gqa_decode=n_step * tokens,
+                    rope=rope_prefill + rope_step * tokens)
     if counts != expected:
         raise AssertionError(f"{name}: launches {counts}, expected {expected}")
     ids = out["token_ids"]
@@ -2207,7 +2326,8 @@ def zoo_train_phase(dev) -> dict:
     expected = dict.fromkeys(counts, 0)
     expected.update(flash_attention=n_attn * args.steps, flash_attention_bwd=n_attn * args.steps,
                     ssd_scan=cfg.num_layers * args.steps,
-                    ssd_scan_bwd=cfg.num_layers * args.steps)
+                    ssd_scan_bwd=cfg.num_layers * args.steps,
+                    rope=2 * n_attn * args.steps, rope_bwd=2 * n_attn * args.steps)
     if counts != expected:
         raise AssertionError(f"zoo train: launches {counts}, expected {expected}")
     if not all(np.isfinite(out["loss"] + out["grad_norm"])):
@@ -2392,7 +2512,7 @@ def dryrun_phase(dev) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t1
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    if launches != {"flash_attention": cfg.num_layers}:
+    if launches != {"flash_attention": cfg.num_layers, "rope": 2 * cfg.num_layers}:
         raise AssertionError(f"dryrun granite prefill: launches {launches}")
     rows["granite_prefill"] = _dryrun_card_row(
         f"granite-3-2b prefill B={b} S={s}", _host_record(cfg, p_shape),
@@ -2415,7 +2535,7 @@ def dryrun_phase(dev) -> dict:
         steps.append(logits)
         ids.append(tok)
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    if launches != {"gqa_decode": cfg.num_layers * t}:
+    if launches != {"gqa_decode": cfg.num_layers * t, "rope": 2 * cfg.num_layers * t}:
         raise AssertionError(f"dryrun granite decode: launches {launches}")
     want_tok = want_logits.argmax(-1)
     with torch.no_grad():
@@ -2457,7 +2577,8 @@ def dryrun_phase(dev) -> dict:
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     n_attn = cfg.num_layers // cfg.attn_every
     if launches != {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
-                    "ssd_scan": cfg.num_layers, "ssd_scan_bwd": cfg.num_layers}:
+                    "ssd_scan": cfg.num_layers, "ssd_scan_bwd": cfg.num_layers,
+                    "rope": 2 * n_attn, "rope_bwd": 2 * n_attn}:
         raise AssertionError(f"dryrun zamba2 train: launches {launches}")
     rows["zamba2_train"] = _dryrun_card_row(
         f"zamba2-1.2b train B={b} S={s}", _host_record(cfg, shape, use_remat=False),

@@ -34,13 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches of each kernel, one per successful launch by its wrapper; a run
 #: sets them to 0 and reads them to show which kernels a path went through.
 #: ``moe_experts`` counts one per call of the MoE's grouped expert products
-#: (``kernels/moe_experts.py``: three grouped GEMMs, one per projection).
+#: (``kernels/moe_experts.py``: three grouped GEMMs, one per projection);
+#: ``rope`` one per rotated tensor and ``rope_bwd`` one per its gradient.
 #: Wrappers may launch from several host threads (the streaming engine's
 #: refresh thread), so every update holds ``_LAUNCH_LOCK``
 LAUNCHES = {"csr_spmm": 0, "edge_softmax": 0, "stage2_score": 0,
             "ssd_scan": 0, "flash_attention": 0, "gqa_decode": 0,
             "csr_spmm_bwd": 0, "edge_softmax_bwd": 0,
-            "flash_attention_bwd": 0, "ssd_scan_bwd": 0, "moe_experts": 0}
+            "flash_attention_bwd": 0, "ssd_scan_bwd": 0, "moe_experts": 0,
+            "rope": 0, "rope_bwd": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -147,6 +149,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
+    ll = ctypes.c_longlong
+    for name in ("rope_f32", "rope_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, i, p]
+        fn.restype = i
 
 
 def load_library() -> KernelLibrary:
@@ -195,10 +202,11 @@ def _is_dtensor(t: torch.Tensor) -> bool:
     return isinstance(t, DTensor)
 
 
-def check_tensor(t, name: str, dtypes, shape=None, device=None) -> None:
+def check_tensor(t, name: str, dtypes, shape=None, device=None, contiguous=True) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of an allowed dtype
     (and of ``shape`` and on ``device`` when given), not a ``DTensor`` —
-    what a kernel takes."""
+    what a kernel takes.  ``contiguous=False`` for a kernel that reads
+    ``t`` through its strides."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if _is_dtensor(t):
@@ -212,7 +220,7 @@ def check_tensor(t, name: str, dtypes, shape=None, device=None) -> None:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -34,7 +34,11 @@ the CPU, each in a fixed order.  ``gqa_decode`` (decode only) and
 (:func:`refuse_grad`) rather than return a tensor that autograd cannot
 differentiate.  ``moe_experts`` (the dropless MoE's expert products) is
 PyTorch's grouped GEMM on the card and a loop over the experts elsewhere,
-both differentiable by autograd.
+both differentiable by autograd.  ``rope`` takes its Function
+(``rope.Rope``) on either device when a gradient is wanted: the backward is
+the rotation by the negated angles, the same kernel on the card, the plain
+version on the CPU; a ``DTensor`` off the card takes the plain version,
+differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention
                                                  flash_attention_plain)
 from repro_torch.kernels.gqa_decode import gqa_decode_cuda
 from repro_torch.kernels.moe_experts import moe_experts_cuda
+from repro_torch.kernels.rope import Rope, rope_cuda
 from repro_torch.kernels.ssd_scan import SsdScan, ssd_scan_cuda, ssd_scan_plain
 from repro_torch.kernels.stage2_score import (flatten_stage2_params, pack_stage2_params,
                                               stage2_score_cuda, unpack_stage2_pack)
@@ -217,3 +222,19 @@ def ssd_scan(x, dt, a, b, c, d_skip=None, chunk: int = 64,
     if cuda:
         return ssd_scan_cuda(x, dt, a, b, c, d_skip)
     return ssd_scan_plain(x, dt, a, b, c, d_skip, chunk, compute_dtype)
+
+
+def rope(x, pos0: int, theta: float):
+    """Rotate-half RoPE of ``x`` [B, H, S, Dh] (the projection's transposed
+    view is read as it is) at positions ``pos0`` .. ``pos0 + S - 1``
+    (``pos0`` a Python int: 0 in prefill, the position in decode).  Returns
+    a contiguous [B, H, S, Dh] in x's dtype.  On the card one launch
+    (``rope.rope_cuda``), elsewhere ``ref.rope_ref``; under grad ``Rope``."""
+    cuda = _on_cuda(x)
+    if not cuda and is_dtensor(x):
+        return ref.rope_ref(x, pos0, theta)
+    if _wants_grad(x):
+        return Rope.apply(x, pos0, theta, cuda)
+    if cuda:
+        return rope_cuda(x, pos0, theta)
+    return ref.rope_ref(x, pos0, theta)

@@ -861,6 +861,25 @@ def ssd_scan_bwd_mma_ref(x, dt, a, b, c, d_skip, dy, chunk: int = 64):
             unchunk(dc.sum(3), c), None if dd is None else dd.to(d_skip.dtype))
 
 
+def rope_ref(x, pos0: int, theta: float, inverse: bool = False):
+    """Rotate-half RoPE of ``x`` [..., S, Dh] at positions ``pos0`` ..
+    ``pos0 + S - 1``: ``models.common.apply_rope``'s expression over
+    ``arange(pos0, pos0 + S)``, op for op (so its bits), in f32 (f64 for
+    f64), rounded once to x's dtype.  ``inverse`` negates the sines (an
+    exact change): the rotation by the negated angles, which is the
+    rotation's gradient."""
+    # imported here: models' package imports kernels.ops, which imports this module
+    from repro_torch.models.common import rope_freqs
+
+    positions = torch.arange(pos0, pos0 + x.shape[-2], device=x.device)
+    angles = positions[..., None].float() * rope_freqs(x.shape[-1], theta, x.device)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if inverse:
+        sin = -sin
+    x1, x2 = x.to(_acc_dtype(x.dtype)).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def moe_experts_ref(xs, ends, w_gate, w_up, w_down):
     """The plain version of the grouped expert products
     (``kernels/moe_experts.py``): a loop over the experts, each expert's

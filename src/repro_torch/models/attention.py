@@ -1,9 +1,10 @@
 """GQA attention with RoPE: prefill path + cached decode path.
 
 The reference's ``repro.models.attention`` with tensors.  Prefill attention
-goes through ``kernels.ops.flash_attention`` and the decode step's online
-softmax over the cache through ``kernels.ops.gqa_decode`` (the CUDA kernels
-for CUDA tensors, the reference's XLA paths on the CPU).
+goes through ``kernels.ops.flash_attention``, the decode step's online
+softmax over the cache through ``kernels.ops.gqa_decode`` and RoPE through
+``kernels.ops.rope`` (the CUDA kernels for CUDA tensors, the reference's
+XLA paths on the CPU).
 
 Physical head padding (``cfg.physical_heads``/``physical_kv_heads``) is kept
 as the reference has it: padded q heads are computed heads whose ``w_o``
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init, torch_dtype
+from repro_torch.models.common import dense_init, torch_dtype
 
 
 def attn_init(gen: torch.Generator, cfg, cross: bool = False, device=None):
@@ -115,10 +116,9 @@ def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, kv_x)
     if use_rope:
-        pos = torch.arange(s, device=x.device)[None, None, :]
-        q = apply_rope(q, pos, cfg.rope_theta)
+        q = ops.rope(q, 0, cfg.rope_theta)
         if kv_x is None:
-            k = apply_rope(k, pos, cfg.rope_theta)
+            k = ops.rope(k, 0, cfg.rope_theta)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     self_attn = kv_x is None
     out = ops.flash_attention(q, k, v, causal=causal and self_attn,
@@ -163,9 +163,8 @@ def attn_decode(params, cfg, x1, cache, pos: int, *, cross: bool = False,
         v1 = v1 + params["bv"]
     k1 = k1.reshape(b, 1, hkv, dh).transpose(1, 2)
     if use_rope:
-        at = torch.full((1, 1, 1), pos, device=x1.device)
-        q = apply_rope(q, at, cfg.rope_theta)
-        k1 = apply_rope(k1, at, cfg.rope_theta)
+        q = ops.rope(q, pos, cfg.rope_theta)
+        k1 = ops.rope(k1, pos, cfg.rope_theta)
     v1 = v1.reshape(b, 1, hkv, dh).transpose(1, 2)
     k, v = cache["k"], cache["v"]
     cache_len = k.shape[2]

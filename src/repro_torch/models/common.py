@@ -79,7 +79,8 @@ def layernorm_nonparametric(x, eps=1e-5):
 
 def rope_freqs(head_dim: int, theta: float, device=None):
     exps = -torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    # theta filled on the device: a copy from the host would wait for it
+    return torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def apply_rope(x, positions, theta: float = 10_000.0):
