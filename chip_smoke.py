@@ -1188,8 +1188,8 @@ def zoo_kernel_checks(dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.gqa_decode import gqa_decode_cuda
+    from repro_torch.kernels.ref import blockwise_attention
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-    from repro_torch.models.common import blockwise_attention
 
     gen = torch.Generator().manual_seed(2)
     results: dict = {}

@@ -2,7 +2,7 @@
 
 Wrapper of the CUDA kernel ``csrc/flash_attention.cu``, the port of the TPU
 kernel ``repro.kernels.flash_attention.flash_attention_pallas``.  Its plain
-version is ``models.common.blockwise_attention`` (``kernels.ref.mha_ref``
+version is ``kernels.ref.blockwise_attention`` (``kernels.ref.mha_ref``
 is the O(S^2) oracle); ``kernels.ops.flash_attention`` picks between kernel
 and plain version by the tensor's device.
 
@@ -113,13 +113,10 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int | None = None,
                           scale: float | None = None):
-    """The plain version: the reference's XLA path, ``blockwise_attention``
+    """The plain version: the reference's XLA path, ``ref.blockwise_attention``
     over key blocks of min(512, Sk)."""
-    # imported here: models.common's package imports kernels.ops, which imports this module
-    from repro_torch.models.common import blockwise_attention
-
-    return blockwise_attention(q, k, v, causal=causal, window=window,
-                               block_k=min(512, k.shape[2]), scale=scale)
+    return ref.blockwise_attention(q, k, v, causal=causal, window=window,
+                                   block_k=min(512, k.shape[2]), scale=scale)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.stage2_score import unpack_stage2_params
+from repro_torch.utils.padding import pad_to_multiple
 
 _LOG2E = 1.4426950408889634
 
@@ -18,6 +19,11 @@ _LOG2E = 1.4426950408889634
 def _acc_dtype(dtype):
     """The type a plain version accumulates in: f32, or f64 for f64 inputs."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def _wide(x):
+    """``x`` in :func:`_acc_dtype`."""
+    return x.to(_acc_dtype(x.dtype))
 
 
 def csr_spmm_ref(h, nbr_idx, weights):
@@ -288,6 +294,64 @@ def mha_ref(q, k, v, causal=True, window=None, scale=None):
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv)
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=None, block_k=512,
+                        q_offset=None, scale=None):
+    """The plain version of the prefill attention kernel
+    (``kernels.ops.flash_attention`` takes it for CPU tensors), the
+    reference's XLA path op for op.
+
+    q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh].  GQA via head grouping
+    (no K/V repetition is materialized).  Returns [B, Hq, Sq, Dh].
+
+    Online softmax over key blocks of ``block_k``, logits and sums in f32,
+    ``-1e30`` for masked logits and ``/ max(l, 1e-30)`` at the end, as the
+    reference.  ``q_offset``: absolute position of q row 0 (default aligns
+    q to the end of the kv sequence, the prefill/train convention).
+    ``scale``: the logits' scale (default ``Dh ** -0.5``).
+    """
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = dh ** -0.5 if scale is None else scale
+    if q_offset is None:
+        q_offset = sk - sq
+    kv_valid = sk
+    if sk % block_k:
+        # ragged KV: zero-pad and mask the tail
+        pad = pad_to_multiple(sk, block_k) - sk
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        sk += pad
+    dev = q.device
+    qg = _wide(q.reshape(b, hkv, rep, sq, dh))
+    acc_t = qg.dtype
+    qpos = q_offset + torch.arange(sq, device=dev)
+
+    m = torch.full((b, hkv, rep, sq), -1e30, dtype=acc_t, device=dev)
+    denom = torch.zeros((b, hkv, rep, sq), dtype=acc_t, device=dev)
+    acc = torch.zeros((b, hkv, rep, sq, dh), dtype=acc_t, device=dev)
+    for j in range(sk // block_k):
+        kj = _wide(k[:, :, j * block_k:(j + 1) * block_k])
+        vj = v[:, :, j * block_k:(j + 1) * block_k]
+        logits = torch.einsum("bgrsd,bgkd->bgrsk", qg, kj) * scale
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        mask = (kpos[None, :] < kv_valid).expand(sq, block_k)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        denom = denom * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrsk,bgkd->bgrsd", _wide(p.to(vj.dtype)), _wide(vj))
+        m = m_new
+    out = acc / denom.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, sq, dh).to(q.dtype)
 
 
 def gqa_decode_ref(q, k, v, kv_len=None, window=None, scale=None):
@@ -861,22 +925,25 @@ def ssd_scan_bwd_mma_ref(x, dt, a, b, c, d_skip, dy, chunk: int = 64):
             unchunk(dc.sum(3), c), None if dd is None else dd.to(d_skip.dtype))
 
 
+def rope_freqs(head_dim: int, theta: float, device=None):
+    """The ``[Dh / 2]`` f32 RoPE frequencies ``theta ** (-2i / Dh)``."""
+    exps = -torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    # theta filled on the device: a copy from the host would wait for it
+    return torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
+
+
 def rope_ref(x, pos0: int, theta: float, inverse: bool = False):
     """Rotate-half RoPE of ``x`` [..., S, Dh] at positions ``pos0`` ..
-    ``pos0 + S - 1``: ``models.common.apply_rope``'s expression over
-    ``arange(pos0, pos0 + S)``, op for op (so its bits), in f32 (f64 for
-    f64), rounded once to x's dtype.  ``inverse`` negates the sines (an
-    exact change): the rotation by the negated angles, which is the
-    rotation's gradient."""
-    # imported here: models' package imports kernels.ops, which imports this module
-    from repro_torch.models.common import rope_freqs
-
+    ``pos0 + S - 1``: the reference's ``apply_rope`` expression over
+    ``arange(pos0, pos0 + S)``, in f32 (f64 for f64), rounded once to x's
+    dtype.  ``inverse`` negates the sines (an exact change): the rotation
+    by the negated angles, which is the rotation's gradient."""
     positions = torch.arange(pos0, pos0 + x.shape[-2], device=x.device)
     angles = positions[..., None].float() * rope_freqs(x.shape[-1], theta, x.device)
     cos, sin = torch.cos(angles), torch.sin(angles)
     if inverse:
         sin = -sin
-    x1, x2 = x.to(_acc_dtype(x.dtype)).chunk(2, dim=-1)
+    x1, x2 = _wide(x).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 

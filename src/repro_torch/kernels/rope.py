@@ -27,12 +27,8 @@ MAX_HEAD_DIM = 256
 
 @functools.cache
 def freq_table(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
-    """The ``[Dh / 2]`` f32 frequencies ``theta ** (-2i / Dh)``
-    (``models.common.rope_freqs``), built once per ``(Dh, theta, device)``."""
-    # imported here: models' package imports kernels.ops, which imports this module
-    from repro_torch.models.common import rope_freqs
-
-    return rope_freqs(head_dim, theta, device)
+    """``ref.rope_freqs``, built once per ``(Dh, theta, device)``."""
+    return ref.rope_freqs(head_dim, theta, device)
 
 
 def rope_cuda(x: torch.Tensor, pos0: int, theta: float, inverse: bool = False,

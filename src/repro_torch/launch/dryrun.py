@@ -72,12 +72,8 @@ def _memory_stats(args, out, donated) -> dict:
     }
 
 
-def _step_kwargs(shape, attn_impl, serve_mode) -> dict:
-    if shape.kind == "train":
-        return {"attn_impl": attn_impl}
-    if shape.kind == "prefill":
-        return {"attn_impl": attn_impl, "mode": serve_mode}
-    return {"mode": serve_mode}
+def _step_kwargs(shape, serve_mode) -> dict:
+    return {} if shape.kind == "train" else {"mode": serve_mode}
 
 
 def count_step(cfg, mesh, shape, **kw) -> tuple[dict, dict, float]:
@@ -110,13 +106,13 @@ def _lin_combine(base, deltas, weights):
     return out
 
 
-def _extrapolated_cost(shape, mesh, cfg, *, attn_impl, serve_mode):
+def _extrapolated_cost(shape, mesh, cfg, *, serve_mode):
     """The reference's cost accounting: run 1-unit and 2-unit variants and
     extend affinely to the real unit counts (integers throughout, so the
     result is exact where the cost is affine in the depth)."""
     dims = cfg.unit_dims()
     base_counts = {name: 1 for name, _ in dims}
-    kw = _step_kwargs(shape, attn_impl, serve_mode)
+    kw = _step_kwargs(shape, serve_mode)
 
     def count(counts):
         return count_step(cfg.with_unit_counts(counts), mesh, shape, **kw)[0]
@@ -145,23 +141,21 @@ def _extrapolated_cost(shape, mesh, cfg, *, attn_impl, serve_mode):
     return _lin_combine(base, deltas, weights)
 
 
-def dry_run_step(cfg, mesh, shape: InputShape, mesh_name: str, *, attn_impl="blockwise",
-                 serve_mode: str = "serve", extrapolate: bool = True, tag: str = "") -> dict:
+def dry_run_step(cfg, mesh, shape: InputShape, mesh_name: str, *, serve_mode: str = "serve",
+                 extrapolate: bool = True, tag: str = "") -> dict:
     """The record of ``cfg``'s step for ``shape`` on ``mesh``: the full-depth
     step run once under the counters (its memory stats, and its counts
     unless ``extrapolate``), the counts from the 1- and 2-unit variants
     with ``extrapolate``.  ``cfg`` as given (the caller pads it)."""
-    kw = _step_kwargs(shape, attn_impl, serve_mode)
+    kw = _step_kwargs(shape, serve_mode)
     cost, mem, t_trace = count_step(cfg, mesh, shape, **kw)
     t_extra = 0.0
     if extrapolate:
         t0 = time.perf_counter()
-        cost = _extrapolated_cost(shape, mesh, cfg, attn_impl=attn_impl,
-                                  serve_mode=serve_mode)
+        cost = _extrapolated_cost(shape, mesh, cfg, serve_mode=serve_mode)
         t_extra = time.perf_counter() - t0
     rec = analyze(cfg, shape, mesh_name, mesh.size, cost, memory_stats=mem,
-                  note=f"attn={attn_impl} mode={serve_mode}"
-                       f"{(' ' + tag) if tag else ''}")
+                  note=f"mode={serve_mode}{(' ' + tag) if tag else ''}")
     result = json.loads(rec.to_json())
     result.update({"status": "ok", "t_trace_s": t_trace, "t_extrapolate_s": t_extra})
     return result
@@ -176,9 +170,9 @@ def _save(rec: dict, arch: str, shape_name: str, mesh_kind: str, tag: str = "") 
         json.dump(rec, f, indent=1)
 
 
-def run_one(arch: str, shape_name: str, mesh_kind: str, *, attn_impl="blockwise",
-            serve_mode: str = "serve", save: bool = True, tag: str = "",
-            extrapolate: bool = True, cfg_overrides: dict | None = None):
+def run_one(arch: str, shape_name: str, mesh_kind: str, *, serve_mode: str = "serve",
+            save: bool = True, tag: str = "", extrapolate: bool = True,
+            cfg_overrides: dict | None = None):
     """One record: ``mesh_kind`` ``single`` (16x16), ``multi`` (2x16x16) or
     ``<d>x<m>`` (another factorization of 256)."""
     shape = INPUT_SHAPES[shape_name]
@@ -201,8 +195,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *, attn_impl="blockwise"
             if save:
                 _save(rec, arch, shape_name, mesh_kind)
             return rec
-        rec = dry_run_step(cfg, mesh, shape, mesh_kind, attn_impl=attn_impl,
-                           serve_mode=serve_mode, extrapolate=extrapolate, tag=tag)
+        rec = dry_run_step(cfg, mesh, shape, mesh_kind, serve_mode=serve_mode,
+                           extrapolate=extrapolate, tag=tag)
     print(f"OK    {arch} x {shape_name} x {mesh_kind}: "
           f"trace {rec['t_trace_s']:.1f}s extrapolate {rec['t_extrapolate_s']:.1f}s | "
           f"Tc={rec['t_compute']*1e3:.2f}ms Tm={rec['t_memory']*1e3:.2f}ms "
@@ -220,7 +214,6 @@ def main(argv=None):
     ap.add_argument("--mesh", default="single",
                     help="single (16x16), multi (2x16x16), both or <d>x<m>")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--attn", default="blockwise", choices=["blockwise", "banded"])
     ap.add_argument("--serve-mode", default="serve",
                     choices=["serve", "serve_tp", "serve_auto", "serve_ws", "train"])
     ap.add_argument("--tag", default="")
@@ -239,8 +232,7 @@ def main(argv=None):
         for arch in archs:
             for shape in shapes:
                 try:
-                    run_one(arch, shape, mesh_kind, attn_impl=args.attn,
-                            serve_mode=args.serve_mode, tag=args.tag,
+                    run_one(arch, shape, mesh_kind, serve_mode=args.serve_mode, tag=args.tag,
                             extrapolate=not args.no_extrapolate)
                 except Exception as e:
                     failures.append((arch, shape, mesh_kind, repr(e)))

@@ -141,7 +141,7 @@ def _replicating(mesh):
 # ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ArchConfig, mesh=None, shape: InputShape | None = None, *,
-                    use_remat: bool = True, attn_impl: str = "blockwise", lr: float = 3e-4):
+                    use_remat: bool = True, lr: float = 3e-4):
     """``train_step(params, opt_state, batch) -> (params, opt_state, {loss,
     grad_norm, lr})``: the loss of :func:`forward_train` and its gradient
     with respect to every leaf by autograd (``jax.value_and_grad`` in the
@@ -169,7 +169,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, shape: InputShape | None = None,
 
         with span("train_step"):
             params, opt_state, loss = grad_step(
-                lambda p: forward_train(p, cfg, batch, use_remat=use_remat, attn_impl=attn_impl),
+                lambda p: forward_train(p, cfg, batch, use_remat=use_remat),
                 params, opt_state, update)
         return params, opt_state, {"loss": loss, **aux}
 
@@ -190,8 +190,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, shape: InputShape | None = None,
     return fn, args
 
 
-def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape, *,
-                      attn_impl: str = "blockwise", mode: str = "serve"):
+def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape, *, mode: str = "serve"):
     """``prefill_step(params, batch) -> (last logits, cache)``: the prompt
     of ``shape.seq_len`` tokens into a cache of that capacity."""
 
@@ -199,7 +198,7 @@ def make_prefill_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         extra = {k: v for k, v in batch.items() if k != "tokens"}
-        return prefill(params, cfg, tokens, shape.seq_len, extra, attn_impl=attn_impl)
+        return prefill(params, cfg, tokens, shape.seq_len, extra)
 
     p_spec = abstract_params(cfg)
     specs = input_specs(cfg, shape)

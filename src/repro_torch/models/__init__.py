@@ -1,8 +1,8 @@
 """The model zoo of the port: configurations and the composable model for
 the groups it has (``decoder``, dense and MoE; ``mamba``, ``zamba_super``);
 and the fraud path's hybrid GNN -> GBDT head (``models.hybrid``), whose
-names resolve lazily (PEP 562): ``kernels.ops`` imports ``models.common``,
-and ``models.hybrid`` imports ``core.lnn``, which imports ``kernels.ops``."""
+names resolve lazily (PEP 562): ``models.hybrid`` imports ``core.lnn``,
+which imports ``kernels.ops``."""
 from repro_torch.models.config import INPUT_SHAPES, ArchConfig, InputShape
 from repro_torch.models.transformer import (
     decode_step,

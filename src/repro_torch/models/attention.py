@@ -92,11 +92,8 @@ def _project_qkv(params, cfg, x, kv_x=None):
     return q.reshape(b, s, hq, dh).transpose(1, 2), kv[0], kv[1]
 
 
-ATTN_IMPLS = ("blockwise", "banded")
-
-
 def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
-               attn_impl: str = "blockwise", scale: float | None = None):
+               scale: float | None = None):
     """Full-sequence attention (prefill).  x: [B, S, d].
 
     ``kv_x`` [B, Sk, d] switches to cross attention: K/V from ``kv_x``, RoPE
@@ -104,15 +101,11 @@ def attn_apply(params, cfg, x, *, kv_x=None, causal=True, use_rope=True,
     kernel takes q rows against all Sk keys.  Returns (out [B, S, d], (k,
     v)) with k/v [B, Hkv, Sk, Dh] for the cache.
 
-    ``attn_impl`` is the reference's choice of XLA path, ``"blockwise"`` or
-    ``"banded"`` (its band-only sliding-window attention, for a windowed
-    configuration such as mixtral-8x22b).  Both take
-    ``kernels.ops.flash_attention`` with the config's window: the card's
-    kernel visits only the key tiles inside the band either way, and the
-    plain version masks the same band, so the two give one function.
+    The attention is ``kernels.ops.flash_attention`` with the config's
+    window, in place of both of the reference's XLA paths (``"blockwise"``
+    and the band-only ``"banded"``): the card's kernel visits only the key
+    tiles inside the band, and the plain version masks the same band.
     ``scale``: the softmax's (default ``Dh ** -0.5``)."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, kv_x)
     if use_rope:

@@ -1,5 +1,6 @@
-"""Shared building blocks of the zoo: init, norms, RoPE, FFNs, and the plain
-blockwise attention.
+"""Shared building blocks of the zoo: init, norms, FFNs and the loss.  RoPE
+and the plain blockwise attention are the kernels' plain versions
+(``kernels.ref.rope_ref``, ``kernels.ref.blockwise_attention``).
 
 The reference's ``repro.models.common`` with tensors in place of jax
 arrays.  Parameters are plain dicts of tensors in the reference's ``x @ W``
@@ -15,9 +16,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import is_dtensor
-from repro_torch.utils.padding import pad_to_multiple
-
-NEG_INF = -1e30
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -74,25 +72,6 @@ def layernorm_nonparametric(x, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
-# ---------------------------------------------------------------------------
-
-def rope_freqs(head_dim: int, theta: float, device=None):
-    exps = -torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    # theta filled on the device: a copy from the host would wait for it
-    return torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
-
-
-def apply_rope(x, positions, theta: float = 10_000.0):
-    """x: [..., S, Dh]; positions: broadcastable to [..., S]."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)               # [Dh/2]
-    angles = positions[..., None].float() * freqs                   # [..., S, Dh/2]
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = wide(x).chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-
-# ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
 
@@ -116,66 +95,6 @@ def ffn_apply(params, x, ffn_type):
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(wide(x @ params["w_up"]), approximate="tanh").to(x.dtype)
     return h @ params["w_down"]
-
-
-# ---------------------------------------------------------------------------
-# Blockwise (flash-style) attention with plain tensor ops: the plain version
-# of the prefill attention kernel (``kernels.ops.flash_attention`` takes it
-# for CPU tensors), the reference's XLA path op for op.
-# ---------------------------------------------------------------------------
-
-def blockwise_attention(q, k, v, *, causal=True, window=None, block_k=512,
-                        q_offset=None, scale=None):
-    """q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Sk, Dh].  GQA via head grouping
-    (no K/V repetition is materialized).  Returns [B, Hq, Sq, Dh].
-
-    Online softmax over key blocks of ``block_k``, logits and sums in f32,
-    ``-1e30`` for masked logits and ``/ max(l, 1e-30)`` at the end, as the
-    reference.  ``q_offset``: absolute position of q row 0 (default aligns
-    q to the end of the kv sequence, the prefill/train convention).
-    ``scale``: the logits' scale (default ``Dh ** -0.5``).
-    """
-    b, hq, sq, dh = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    rep = hq // hkv
-    scale = dh ** -0.5 if scale is None else scale
-    if q_offset is None:
-        q_offset = sk - sq
-    kv_valid = sk
-    if sk % block_k:
-        # ragged KV: zero-pad and mask the tail
-        pad = pad_to_multiple(sk, block_k) - sk
-        k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
-        sk += pad
-    dev = q.device
-    qg = wide(q.reshape(b, hkv, rep, sq, dh))
-    acc_t = qg.dtype
-    qpos = q_offset + torch.arange(sq, device=dev)
-
-    m = torch.full((b, hkv, rep, sq), NEG_INF, dtype=acc_t, device=dev)
-    denom = torch.zeros((b, hkv, rep, sq), dtype=acc_t, device=dev)
-    acc = torch.zeros((b, hkv, rep, sq, dh), dtype=acc_t, device=dev)
-    for j in range(sk // block_k):
-        kj = wide(k[:, :, j * block_k:(j + 1) * block_k])
-        vj = v[:, :, j * block_k:(j + 1) * block_k]
-        logits = torch.einsum("bgrsd,bgkd->bgrsk", qg, kj) * scale
-        kpos = j * block_k + torch.arange(block_k, device=dev)
-        mask = (kpos[None, :] < kv_valid).expand(sq, block_k)
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])
-        if window is not None:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-        m_new = torch.maximum(m, logits.amax(-1))
-        p = torch.exp(logits - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        denom = denom * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bgrsk,bgkd->bgrsd", wide(p.to(vj.dtype)), wide(vj))
-        m = m_new
-    out = acc / denom.clamp_min(1e-30)[..., None]
-    return out.reshape(b, hq, sq, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

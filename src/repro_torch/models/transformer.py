@@ -18,6 +18,10 @@ into its slice):
   granite_hybrid [('granite_hybrid', L)]   (a Mamba2 or attention mixer a
               layer, as ``layer_pattern`` orders them, each then an MoE)
 
+Each group name has one entry in :data:`GROUPS`: the parameters it draws,
+its pass over the sequence (forward, prefill, training), its decode cache and
+its pass over one decode token, which the entry points call in program order.
+
 A ``decoder`` layer is attention then an FFN, or the MoE layer
 (``models.moe``) for a ``moe`` config, whose load-balancing loss the
 forward sums over layers as ``aux``; decode runs the MoE at full capacity,
@@ -56,6 +60,9 @@ in place.  ``use_remat`` recomputes each layer's forward in the backward
 scan bodies): it changes memory, not values.
 """
 from __future__ import annotations
+
+from collections import namedtuple
+from functools import partial
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -111,31 +118,19 @@ def _norm(cfg, x, scale):
     return rmsnorm(x, scale)
 
 
-def _layer(stacked, i):
-    """Layer ``i`` of a stacked tree (views, no copies).  For the decode
-    caches and ``decode_step``, outside autograd: under grad each ``t[i]``
-    has a backward that writes its slice into a zero-filled gradient of the
-    whole leaf, and autograd sums the L of them, bytes that grow as L².  The
-    forward takes its layers from :func:`_layers`."""
-    return tree_map(lambda t: t[i], stacked)
-
-
-def _sharded_on_layers(t) -> bool:
-    """Whether ``t`` is a dry-run ``DTensor`` sharded along its leading
-    (layer) axis, which ``DTensor`` refuses to unbind: FSDP's rule shards a
-    stacked vector leaf's penultimate dim, its layer axis, over ``data``."""
-    return is_dtensor(t) and any(p.is_shard(0) for p in t.placements)
-
-
 def _layers(stacked) -> list:
     """Every layer of a stacked tree, one tree of views a layer: each leaf
     unbound once along its leading axis.  Under grad a leaf's backward is
-    then one ``stack`` of its layers' gradients (:func:`_layer`'s ``t[i]``
-    would cost L zero-filled full-size gradients and their sum); without
-    grad the views are the same and nothing launches.  A leaf that
-    :func:`_sharded_on_layers` is taken a layer at a time by ``t[i]``."""
-    parts = [[t[i] for i in range(t.shape[0])] if _sharded_on_layers(t) else torch.unbind(t, 0)
-             for t in tree_leaves(stacked)]
+    then one ``stack`` of its layers' gradients (a ``t[i]`` per layer would
+    cost L zero-filled full-size gradients and their sum); without grad
+    nothing launches, and a decode cache written through the views is
+    written in place.  A dry-run ``DTensor`` sharded along its leading
+    (layer) axis, which ``DTensor`` refuses to unbind (FSDP's rule shards a
+    stacked vector leaf's penultimate dim, its layer axis, over ``data``),
+    is taken a layer at a time by ``t[i]``."""
+    parts = [[t[i] for i in range(t.shape[0])]
+             if is_dtensor(t) and any(p.is_shard(0) for p in t.placements)
+             else torch.unbind(t, 0) for t in tree_leaves(stacked)]
     return [tree_unflatten(stacked, [p[i] for p in parts]) for i in range(len(parts[0]))]
 
 
@@ -146,6 +141,11 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def _stack_init(layer_init, gen, cfg, n, dev, params=None):
+    """``n`` layers of ``layer_init`` stacked (bound to it, a group's init)."""
+    return _stack([layer_init(gen, cfg, device=dev) for _ in range(n)])
 
 
 def _body(use_remat: bool, fn, *args, **kwargs):
@@ -159,7 +159,7 @@ def _body(use_remat: bool, fn, *args, **kwargs):
 
 
 # ---------------------------------------------------------------------------
-# init
+# layers: init, sequence pass, decode step
 # ---------------------------------------------------------------------------
 
 def _decoder_layer_init(gen, cfg, device=None):
@@ -202,10 +202,6 @@ def _dec_layer_init(gen, cfg, device=None):
     }
 
 
-def _stack_init(init_fn, gen, n, cfg, device):
-    return _stack([init_fn(gen, cfg, device=device) for _ in range(n)])
-
-
 def _granite_hybrid_layer_init(gen, cfg, device=None):
     """A granite_hybrid layer's parts beside its mixer: the two norms, the
     MoE and the shared expert."""
@@ -218,66 +214,6 @@ def _granite_hybrid_layer_init(gen, cfg, device=None):
     }
 
 
-def _granite_hybrid_init(gen, cfg, device=None):
-    """The layers' stacks and the two stacks of mixers, in pattern order."""
-    return {
-        **_stack_init(_granite_hybrid_layer_init, gen, cfg.num_layers, cfg, device),
-        "mamba": _stack_init(mamba_init, gen, cfg.layer_pattern.count("M"), cfg, device),
-        "attn": _stack_init(attn_init, gen, cfg.layer_pattern.count("A"), cfg, device),
-    }
-
-
-def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
-    """Parameter tree of ``cfg`` on ``device`` (default: CUDA).
-
-    Draws come from ``gen`` on its own device (a CUDA generator draws on the
-    card, which is much faster at full width); one seed and one generator
-    device give the same weights on every target device.  Key paths, shapes
-    and dtypes are the reference's (``groups/decoder/attn/wq`` has a leading
-    ``[L]`` axis, ``groups/decoder/moe/w_gate`` is ``[L, E, d, f]``,
-    ``groups/zamba_super/mamba/w_in`` has leading axes ``[n_super,
-    attn_every]``, ``groups/vlm_super/self/attn/wq`` ``[n_super,
-    cross_attn_every - 1]``, ``groups/vlm_super/cross/gate`` ``[n_super, 1]``
-    in f32); the values are not.  A ``granite_hybrid`` configuration has
-    no ``head`` (it is tied to ``embed``).
-    """
-    dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
-    v = cfg.physical_vocab
-    params = {
-        "embed": dense_init(gen, (v, cfg.d_model), dtype, scale=0.02, device=dev),
-        "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-        "groups": {},
-    }
-    if cfg.arch_type != "granite_hybrid":
-        params["head"] = dense_init(gen, (cfg.d_model, v), dtype, device=dev)
-    for gname, n in build_program(cfg):
-        if gname in ("decoder", "enc"):
-            params["groups"][gname] = _stack_init(_decoder_layer_init, gen, n, cfg, dev)
-        elif gname == "mamba":
-            params["groups"][gname] = _stack_init(mamba_init, gen, n, cfg, dev)
-        elif gname == "zamba_super":
-            params["groups"][gname] = {"mamba": _stack(
-                [_stack_init(mamba_init, gen, cfg.attn_every, cfg, dev)
-                 for _ in range(n)])}
-            params["shared_attn"] = _decoder_layer_init(gen, cfg, device=dev)
-        elif gname == "vlm_super":
-            params["groups"][gname] = {
-                "self": _stack([_stack_init(_decoder_layer_init, gen, cfg.cross_attn_every - 1,
-                                            cfg, dev) for _ in range(n)]),
-                "cross": _stack_init(_cross_layer_init, gen, n, cfg, dev),
-            }
-        elif gname == "granite_hybrid":
-            params["groups"][gname] = _granite_hybrid_init(gen, cfg, dev)
-        else:  # dec
-            params["groups"][gname] = _stack_init(_dec_layer_init, gen, n, cfg, dev)
-    return params
-
-
-# ---------------------------------------------------------------------------
-# forward (prefill)
-# ---------------------------------------------------------------------------
-
 def _ffn_or_moe(p, cfg, f_in, *, full_capacity=False):
     """The layer's FFN, or its MoE over the flattened ``[B·S, d]`` tokens.
     Returns (out, aux), aux the MoE's balance loss (None for an FFN)."""
@@ -288,11 +224,10 @@ def _ffn_or_moe(p, cfg, f_in, *, full_capacity=False):
     return ffn_apply(p["ffn"], f_in, cfg.ffn_type), None
 
 
-def _decoder_block(p, cfg, h, *, want_cache, attn_impl="blockwise", causal=True):
+def _decoder_block(p, cfg, h, *, want_cache, causal=True):
     """Returns (h, cache, aux)."""
     with span("attention"):
-        a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), causal=causal,
-                                   attn_impl=attn_impl)
+        a_out, (k, v) = attn_apply(p["attn"], cfg, _norm(cfg, h, p["ln1"]), causal=causal)
     # the port's one hint beyond the reference's: on a mesh the residual
     # keeps the activations' layout, where DTensor would otherwise shard the
     # sequence over the model axis, which torch 2.11's views cannot flatten
@@ -308,6 +243,13 @@ def _decoder_layer(p, cfg, h, **kwargs):
     layout (the audio encoder's layers go without, as in the reference)."""
     h, cache, aux = _decoder_block(p, cfg, h, **kwargs)
     return shard_hint(h, "act"), cache, aux
+
+
+def _decoder_block_decode(p, cfg, h, cache, pos):
+    a_out, cache = attn_decode(p["attn"], cfg, _norm(cfg, h, p["ln1"]), cache, pos)
+    h = h + a_out
+    f_out, _ = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]), full_capacity=True)
+    return shard_hint(h + f_out, "act"), cache
 
 
 def _cross_block(p, cfg, h, memory, *, want_cache):
@@ -338,12 +280,12 @@ def _mamba_block(p, cfg, h, want_cache):
     return shard_hint(h + y, "act"), st
 
 
-def _mamba_stack(gp, cfg, h, want_cache, use_remat=False):
-    states = []
-    for p in _layers(gp):
-        h, st = _body(use_remat, _mamba_block, p, cfg, h, want_cache)
-        states.append(st)
-    return h, (_stack(states) if want_cache else None)
+def _mamba_decode_into(p, cfg, x1, cache, eps=1e-6):
+    """``mamba_decode``'s y, its new state written into ``cache`` in place."""
+    y, new = mamba_decode(p, cfg, x1, cache, eps=eps)
+    cache["conv"].copy_(new["conv"])
+    cache["ssm"].copy_(new["ssm"])
+    return y
 
 
 def _moe_shared(p, cfg, x):
@@ -354,7 +296,7 @@ def _moe_shared(p, cfg, x):
     return y.reshape(b, s, d) + ffn_apply(p["shared"], x, "swiglu"), aux
 
 
-def _granite_hybrid_layer(p, mix, kind, cfg, h, want_cache, attn_impl):
+def _granite_hybrid_layer(p, mix, kind, cfg, h, want_cache):
     """One granite_hybrid layer: the mixer ``mix`` of ``kind`` (``M`` or
     ``A``) in the ``mamba`` or ``attention`` span, the MoE and shared expert
     in the ``moe`` span, each added at the residual multiplier.  Returns (h,
@@ -368,7 +310,7 @@ def _granite_hybrid_layer(p, mix, kind, cfg, h, want_cache, attn_impl):
         with span("attention"):
             y, (k, v) = attn_apply(mix, cfg, rmsnorm(h, p["ln1"], eps),
                                    use_rope=cfg.position_embedding_type != "nope",
-                                   attn_impl=attn_impl, scale=cfg.attention_multiplier)
+                                   scale=cfg.attention_multiplier)
         state = {"k": k, "v": v} if want_cache else None
     h = h + y * r
     with span("moe"):
@@ -376,78 +318,254 @@ def _granite_hybrid_layer(p, mix, kind, cfg, h, want_cache, attn_impl):
     return h + f * r, state, aux
 
 
+# ---------------------------------------------------------------------------
+# groups, each its four functions (``gp``: its parameters; ``aux``: its MoE
+# balance loss, or None):
+#   init(gen, cfg, n, device, params) -> gp
+#   run(params, gp, cfg, h, extra, want_cache, use_remat) -> (h, cache, aux)
+#   cache(cfg, n, attn_zeros, mamba_zeros, extra_shapes) -> its decode cache
+#   decode(params, gp, cfg, h, cache, pos) -> h, the cache written in place
+# ---------------------------------------------------------------------------
+
+_Group = namedtuple("_Group", "init run cache decode")
+
+
+def _decoder_run(params, gp, cfg, h, extra, want_cache, use_remat):
+    caches, aux_sum = [], None
+    for p in _layers(gp):
+        h, cache, aux = _body(use_remat, _decoder_layer, p, cfg, h, want_cache=want_cache)
+        if aux is not None:
+            aux_sum = aux if aux_sum is None else aux_sum + aux
+        caches.append(cache)
+    return h, (_stack(caches) if want_cache else None), aux_sum
+
+
+def _decoder_decode(params, gp, cfg, h, cstack, pos):
+    for p, c in zip(_layers(gp), _layers(cstack)):
+        h, _ = _decoder_block_decode(p, cfg, h, c, pos)
+    return h
+
+
+def _mamba_run(params, gp, cfg, h, extra, want_cache, use_remat):
+    states = []
+    for p in _layers(gp):
+        h, st = _body(use_remat, _mamba_block, p, cfg, h, want_cache)
+        states.append(st)
+    return h, (_stack(states) if want_cache else None), None
+
+
+def _mamba_decode(params, gp, cfg, h, cstack, pos):
+    for p, c in zip(_layers(gp), _layers(cstack)):
+        h = h + _mamba_decode_into(p, cfg, rmsnorm(h), c)
+    return h
+
+
+def _zamba_init(gen, cfg, n, dev, params):
+    """``[n, attn_every]`` Mamba2 stacks; the shared attention block, drawn
+    after them, goes to the top level (``shared_attn``)."""
+    gp = {"mamba": _stack([_stack_init(mamba_init, gen, cfg, cfg.attn_every, dev)
+                           for _ in range(n)])}
+    params["shared_attn"] = _decoder_layer_init(gen, cfg, device=dev)
+    return gp
+
+
+def _zamba_run(params, gp, cfg, h, extra, want_cache, use_remat):
+    outs = []
+    for mp in _layers(gp["mamba"]):
+        h, mstates, _ = _mamba_run(params, mp, cfg, h, extra, want_cache, use_remat)
+        h, acache, _ = _body(use_remat, _decoder_layer, params["shared_attn"], cfg, h,
+                             want_cache=want_cache)
+        outs.append({"mamba": mstates, "attn": acache})
+    return h, (_stack(outs) if want_cache else None), None
+
+
+def _zamba_cache(cfg, n, attn_zeros, mamba_zeros, extra_shapes):
+    return {"mamba": mamba_zeros(n, cfg.attn_every), "attn": attn_zeros(n)}
+
+
+def _zamba_decode(params, gp, cfg, h, cstack, pos):
+    for mp, mc, ac in zip(_layers(gp["mamba"]), _layers(cstack["mamba"]),
+                          _layers(cstack["attn"])):
+        h = _mamba_decode(params, mp, cfg, h, mc, pos)
+        h, _ = _decoder_block_decode(params["shared_attn"], cfg, h, ac, pos)
+    return h
+
+
+def _vlm_init(gen, cfg, n, dev, params):
+    """``[n, cross_attn_every - 1]`` self layers, then ``n`` cross layers."""
+    return {"self": _stack([_stack_init(_decoder_layer_init, gen, cfg, cfg.cross_attn_every - 1,
+                                        dev) for _ in range(n)]),
+            "cross": _stack_init(_cross_layer_init, gen, cfg, n, dev)}
+
+
+def _vlm_run(params, gp, cfg, h, extra, want_cache, use_remat):
+    outs = []
+    for sp, xp in zip(_layers(gp["self"]), _layers(gp["cross"])):
+        h, scache, _ = _decoder_run(params, sp, cfg, h, extra, want_cache, use_remat)
+        h, xcache = _body(use_remat, _cross_block, xp, cfg, h, extra["vision"],
+                          want_cache=want_cache)
+        outs.append({"self": scache, "cross": xcache})
+    return h, (_stack(outs) if want_cache else None), None
+
+
+def _vlm_cache(cfg, n, attn_zeros, mamba_zeros, extra_shapes):
+    return {"self": attn_zeros(n, cfg.cross_attn_every - 1),
+            "cross": attn_zeros(n, slots=extra_shapes.get("vision_len", cfg.num_vision_tokens))}
+
+
+def _vlm_decode(params, gp, cfg, h, cstack, pos):
+    for sp, sc, xp, xc in zip(_layers(gp["self"]), _layers(cstack["self"]),
+                              _layers(gp["cross"]), _layers(cstack["cross"])):
+        h = _decoder_decode(params, sp, cfg, h, sc, pos)
+        a_out, _ = attn_decode(xp["attn"], cfg, _norm(cfg, h, xp["ln1"]), xc, pos, cross=True)
+        h = h + torch.tanh(xp["gate"]).to(h.dtype) * a_out
+        h = h + ffn_apply(xp["ffn"], _norm(cfg, h, xp["ln2"]), cfg.ffn_type)
+    return h
+
+
+def _dec_run(params, gp, cfg, h, extra, want_cache, use_remat):
+    outs = []
+    for p in _layers(gp):
+        h, cache = _body(use_remat, _dec_block, p, cfg, h, extra["memory"],
+                         want_cache=want_cache)
+        outs.append(cache)
+    return h, (_stack(outs) if want_cache else None), None
+
+
+def _dec_cache(cfg, n, attn_zeros, mamba_zeros, extra_shapes):
+    return {"self": attn_zeros(n),
+            "cross": attn_zeros(n, slots=extra_shapes.get("memory_len", 1024))}
+
+
+def _dec_decode(params, gp, cfg, h, cstack, pos):
+    for p, c in zip(_layers(gp), _layers(cstack)):
+        a_out, _ = attn_decode(p["self"], cfg, _norm(cfg, h, p["ln1"]), c["self"], pos)
+        h = h + a_out
+        x_out, _ = attn_decode(p["cross"], cfg, _norm(cfg, h, p["ln_x"]), c["cross"], pos,
+                               cross=True)
+        h = h + x_out
+        h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
+    return h
+
+
 _HYBRID_LAYER = ("ln1", "ln2", "moe", "shared")
 
 
-def _granite_hybrid_stack(gp, cfg, h, want_cache, attn_impl, use_remat):
-    """The granite_hybrid group's layers in pattern order, each through
-    :func:`_body`.  Returns (h, cache or None, aux summed)."""
+def _granite_hybrid_init(gen, cfg, n, dev, params):
+    """The layers' stacks and the two stacks of mixers, in pattern order."""
+    return {
+        **_stack_init(_granite_hybrid_layer_init, gen, cfg, n, dev),
+        "mamba": _stack_init(mamba_init, gen, cfg, cfg.layer_pattern.count("M"), dev),
+        "attn": _stack_init(attn_init, gen, cfg, cfg.layer_pattern.count("A"), dev),
+    }
+
+
+def _granite_hybrid_run(params, gp, cfg, h, extra, want_cache, use_remat):
+    """The layers in pattern order, each through :func:`_body`."""
     mixers = {"M": iter(_layers(gp["mamba"])), "A": iter(_layers(gp["attn"]))}
     states = {"M": [], "A": []}
     aux_total = 0.0
     for p, kind in zip(_layers({n: gp[n] for n in _HYBRID_LAYER}), cfg.layer_pattern):
         h, state, aux = _body(use_remat, _granite_hybrid_layer, p, next(mixers[kind]), kind,
-                              cfg, h, want_cache, attn_impl)
+                              cfg, h, want_cache)
         states[kind].append(state)
         aux_total = aux_total + aux
     cache = {"mamba": _stack(states["M"]), "attn": _stack(states["A"])} if want_cache else None
     return h, cache, aux_total
 
 
-def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, attn_impl="blockwise",
-                use_remat=False):
-    """Run the block program over the groups ``params`` holds (the audio
-    forward passes only ``dec``).  Returns (h, caches, aux summed over the
-    decoder layers, f32).  ``use_remat``: each layer (a superblock's Mamba2
+def _granite_hybrid_cache(cfg, n, attn_zeros, mamba_zeros, extra_shapes):
+    return {"mamba": mamba_zeros(cfg.layer_pattern.count("M")),
+            "attn": attn_zeros(cfg.layer_pattern.count("A"))}
+
+
+def _granite_hybrid_decode(params, gp, cfg, h, cstack, pos):
+    """Each layer's new Mamba2 state or K/V row written into ``cstack``."""
+    eps, r = cfg.rms_norm_eps, cfg.residual_multiplier
+    mixers = {"M": iter(zip(_layers(gp["mamba"]), _layers(cstack["mamba"]))),
+              "A": iter(zip(_layers(gp["attn"]), _layers(cstack["attn"])))}
+    for p, kind in zip(_layers({n: gp[n] for n in _HYBRID_LAYER}), cfg.layer_pattern):
+        mix, c = next(mixers[kind])
+        x = rmsnorm(h, p["ln1"], eps)
+        if kind == "M":
+            y = _mamba_decode_into(mix, cfg, x, c, eps=eps)
+        else:
+            y, _ = attn_decode(mix, cfg, x, c, pos,
+                               use_rope=cfg.position_embedding_type != "nope",
+                               scale=cfg.attention_multiplier)
+        h = h + y * r
+        f, _ = _moe_shared(p, cfg, rmsnorm(h, p["ln2"], eps))
+        h = h + f * r
+    return h
+
+
+GROUPS = {
+    "decoder": _Group(partial(_stack_init, _decoder_layer_init), _decoder_run,
+                      lambda cfg, n, attn, mamba, shapes: attn(n), _decoder_decode),
+    "mamba": _Group(partial(_stack_init, mamba_init), _mamba_run,
+                    lambda cfg, n, attn, mamba, shapes: mamba(n), _mamba_decode),
+    "zamba_super": _Group(_zamba_init, _zamba_run, _zamba_cache, _zamba_decode),
+    "vlm_super": _Group(_vlm_init, _vlm_run, _vlm_cache, _vlm_decode),
+    # the audio encoder: :func:`forward` runs it (:func:`_encode`) ahead of
+    # the dec group, whose cross caches hold its output; nothing to decode
+    "enc": _Group(partial(_stack_init, _decoder_layer_init), None, None, None),
+    "dec": _Group(partial(_stack_init, _dec_layer_init), _dec_run, _dec_cache, _dec_decode),
+    "granite_hybrid": _Group(_granite_hybrid_init, _granite_hybrid_run, _granite_hybrid_cache,
+                             _granite_hybrid_decode),
+}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
+    """Parameter tree of ``cfg`` on ``device`` (default: CUDA).
+
+    Draws come from ``gen`` on its own device (a CUDA generator draws on the
+    card, which is much faster at full width); one seed and one generator
+    device give the same weights on every target device.  Key paths, shapes
+    and dtypes are the reference's (``groups/decoder/attn/wq`` has a leading
+    ``[L]`` axis, ``groups/decoder/moe/w_gate`` is ``[L, E, d, f]``,
+    ``groups/zamba_super/mamba/w_in`` has leading axes ``[n_super,
+    attn_every]``, ``groups/vlm_super/self/attn/wq`` ``[n_super,
+    cross_attn_every - 1]``, ``groups/vlm_super/cross/gate`` ``[n_super, 1]``
+    in f32); the values are not.  A ``granite_hybrid`` configuration has
+    no ``head`` (it is tied to ``embed``).
+    """
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    v = cfg.physical_vocab
+    params = {
+        "embed": dense_init(gen, (v, cfg.d_model), dtype, scale=0.02, device=dev),
+        "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "groups": {},
+    }
+    if cfg.arch_type != "granite_hybrid":
+        params["head"] = dense_init(gen, (cfg.d_model, v), dtype, device=dev)
+    for gname, n in build_program(cfg):
+        params["groups"][gname] = GROUPS[gname].init(gen, cfg, n, dev, params)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _run_groups(params, cfg: ArchConfig, h, extra, *, want_cache, use_remat=False):
+    """Run the block program's groups over the sequence (the audio
+    encoder's is :func:`_encode`).  Returns (h, caches, aux summed over the
+    MoE layers, f32).  ``use_remat``: each layer (a superblock's Mamba2
     blocks and shared attention each) through :func:`_body`."""
     caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for gname, _ in build_program(cfg):
-        if gname not in params["groups"]:
+        run = GROUPS[gname].run
+        if run is None:
             continue
-        gp = params["groups"][gname]
-        if gname == "decoder":
-            outs = []
-            for p in _layers(gp):
-                h, cache, aux = _body(use_remat, _decoder_layer, p, cfg, h,
-                                      want_cache=want_cache, attn_impl=attn_impl)
-                if aux is not None:
-                    aux_total = aux_total + aux
-                outs.append(cache)
-            caches[gname] = _stack(outs) if want_cache else None
-        elif gname == "mamba":
-            h, caches[gname] = _mamba_stack(gp, cfg, h, want_cache, use_remat)
-        elif gname == "zamba_super":
-            shared = params["shared_attn"]
-            outs = []
-            for mp in _layers(gp["mamba"]):
-                h, mstates = _mamba_stack(mp, cfg, h, want_cache, use_remat)
-                h, acache, _ = _body(use_remat, _decoder_layer, shared, cfg, h,
-                                     want_cache=want_cache, attn_impl=attn_impl)
-                outs.append({"mamba": mstates, "attn": acache})
-            caches[gname] = _stack(outs) if want_cache else None
-        elif gname == "vlm_super":
-            outs = []
-            for sp, xp in zip(_layers(gp["self"]), _layers(gp["cross"])):
-                scaches = []
-                for p in _layers(sp):
-                    h, cache, _ = _body(use_remat, _decoder_layer, p, cfg, h,
-                                        want_cache=want_cache, attn_impl=attn_impl)
-                    scaches.append(cache)
-                h, xcache = _body(use_remat, _cross_block, xp, cfg, h, extra["vision"],
-                                  want_cache=want_cache)
-                outs.append({"self": _stack(scaches) if want_cache else None, "cross": xcache})
-            caches[gname] = _stack(outs) if want_cache else None
-        elif gname == "dec":
-            outs = []
-            for p in _layers(gp):
-                h, cache = _body(use_remat, _dec_block, p, cfg, h, extra["memory"],
-                                 want_cache=want_cache)
-                outs.append(cache)
-            caches[gname] = _stack(outs) if want_cache else None
-        elif gname == "granite_hybrid":
-            h, caches[gname], aux = _granite_hybrid_stack(gp, cfg, h, want_cache, attn_impl,
-                                                          use_remat)
+        h, caches[gname], aux = run(params, params["groups"][gname], cfg, h, extra,
+                                    want_cache, use_remat)
+        if aux is not None:
             aux_total = aux_total + aux
     return h, (caches if want_cache else {}), aux_total
 
@@ -483,15 +601,13 @@ def _logits(params, cfg, h):
 
 
 def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
-            attn_impl: str = "blockwise", use_remat: bool = False):
+            use_remat: bool = False):
     """tokens: [B, S] int; ``extra``: ``{"vision": [B, Tv, d]}`` for a vlm
     config, ``{"frames": [B, Sf, d]}`` for an audio one.  Returns (logits
     [B, S, Vphys], caches, aux); aux is the MoE balance loss summed over
-    the decoder layers (f32, 0 without MoE).  The audio model's caches also
-    hold the encoder's output (``enc_memory``).  ``attn_impl``:
-    ``"blockwise"`` or ``"banded"`` (one function on the port; see
-    ``models.attention.attn_apply``).  ``use_remat``: recompute each layer
-    in the backward (:func:`_body`)."""
+    the MoE layers (f32, 0 without MoE).  The audio model's caches also
+    hold the encoder's output (``enc_memory``).  ``use_remat``: recompute
+    each layer in the backward (:func:`_body`)."""
     extra = extra or {}
     # on a mesh the lookup is shard-local over the batch, the table gathered
     # first (as FSDP gathers a weight before its use): torch 2.11's DTensor
@@ -500,21 +616,16 @@ def forward(params, cfg: ArchConfig, tokens, extra=None, *, want_cache=False,
                                                    ((0, None), (None, None)),
                                                    out_dims=(0, None))), "act")
     if cfg.arch_type == "audio":
-        memory = _encode(params, cfg, extra["frames"], use_remat)
-        dec_params = {"groups": {"dec": params["groups"]["dec"]}}
-        h, caches, aux = _run_groups(dec_params, cfg, h, dict(extra, memory=memory),
-                                     want_cache=want_cache, attn_impl=attn_impl,
-                                     use_remat=use_remat)
-        if want_cache:
-            caches["enc_memory"] = memory
-    else:
-        h, caches, aux = _run_groups(params, cfg, h, extra, want_cache=want_cache,
-                                     attn_impl=attn_impl, use_remat=use_remat)
+        extra = dict(extra, memory=_encode(params, cfg, extra["frames"], use_remat))
+    h, caches, aux = _run_groups(params, cfg, h, extra, want_cache=want_cache,
+                                 use_remat=use_remat)
+    if want_cache and cfg.arch_type == "audio":
+        caches["enc_memory"] = extra["memory"]
     return _logits(params, cfg, h), caches, aux
 
 
 def forward_train(params, cfg: ArchConfig, batch, *, use_remat: bool = True,
-                  attn_impl: str = "blockwise", aux_weight: float = 0.01):
+                  aux_weight: float = 0.01):
     """The causal LM loss, f32 scalar.  ``batch``: ``{"tokens", "labels",
     [extras]}`` ([B, S] int each, labels -1 where masked; a vlm's
     ``vision``, an audio model's ``frames``).  The vocabulary's padding
@@ -523,8 +634,7 @@ def forward_train(params, cfg: ArchConfig, batch, *, use_remat: bool = True,
     (clamped at 0) under the mask ``labels >= 0``, plus ``aux_weight`` times
     the MoE balance loss.  The reference's ``forward_train``."""
     extra = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
-    logits, _, aux = forward(params, cfg, batch["tokens"], extra, use_remat=use_remat,
-                             attn_impl=attn_impl)
+    logits, _, aux = forward(params, cfg, batch["tokens"], extra, use_remat=use_remat)
     if cfg.physical_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.physical_vocab, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, torch.full((), -1e30, dtype=logits.dtype,
@@ -535,8 +645,7 @@ def forward_train(params, cfg: ArchConfig, batch, *, use_remat: bool = True,
     return loss + aux_weight * aux
 
 
-def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,
-            attn_impl: str = "blockwise"):
+def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None):
     """Process a prompt and build a decode cache of capacity ``max_len``.
 
     Returns (last_logits [B, Vphys], caches): the Mamba states as the
@@ -551,14 +660,10 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,
     extra = extra or {}
     b, s = tokens.shape
     with span("prefill"):
-        logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True,
-                                        attn_impl=attn_impl)
+        logits, fwd_caches, _ = forward(params, cfg, tokens, extra, want_cache=True)
         fwd_caches.pop("enc_memory", None)   # cached per dec layer as cross K/V
-        extra_shapes = {}
-        if "vision" in extra:
-            extra_shapes["vision_len"] = extra["vision"].shape[1]
-        if "frames" in extra:
-            extra_shapes["memory_len"] = extra["frames"].shape[1]
+        extra_shapes = {name: extra[key].shape[1] for key, name in
+                        (("vision", "vision_len"), ("frames", "memory_len")) if key in extra}
         ring = bool(cfg.ring_kv_cache and cfg.window)
 
         def merge(dst, src):
@@ -579,25 +684,13 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, extra=None,
             full = init_cache(cfg, b, max_len, extra_shapes, device=logits.device)
             merged = {"pos": s}
             for gname, src in fwd_caches.items():
-                merged[gname] = _tree_map2(merge, full[gname], src)
+                merged[gname] = tree_map(merge, full[gname], src)
         return logits[:, -1], merged
-
-
-def _tree_map2(fn, a, b):
-    if isinstance(a, dict):
-        return {k: _tree_map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
 
 
 # ---------------------------------------------------------------------------
 # decode: cache init + single-token step
 # ---------------------------------------------------------------------------
-
-def _attn_cache_zeros(cfg, batch, max_len, dtype, device=None, lead=()):
-    shape = (*lead, batch, cfg.physical_kv_heads, max_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
                device=None):
@@ -614,88 +707,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, extra_shapes=None,
         max_len = min(max_len, cfg.window)
     conv_w = cfg.d_inner + 2 * cfg.ssm_state
 
-    def mamba_states(n):
+    def mamba_zeros(*lead):
         return {
-            "conv": torch.zeros((n, batch, cfg.conv_kernel - 1, conv_w), dtype=dtype,
+            "conv": torch.zeros((*lead, batch, cfg.conv_kernel - 1, conv_w), dtype=dtype,
                                 device=dev),
-            "ssm": torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+            "ssm": torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
                                dtype=torch.float32, device=dev),
         }
 
     def attn_zeros(*lead, slots=max_len):
-        return _attn_cache_zeros(cfg, batch, slots, dtype, dev, lead)
+        shape = (*lead, batch, cfg.physical_kv_heads, slots, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
     caches = {"pos": 0}
     for gname, n in build_program(cfg):
-        n = max(n, 1)
-        if gname == "decoder":
-            caches[gname] = attn_zeros(n)
-        elif gname == "mamba":
-            caches[gname] = mamba_states(n)
-        elif gname == "zamba_super":
-            caches[gname] = {
-                "mamba": tree_map(lambda t: t.reshape(n, cfg.attn_every, *t.shape[1:]),
-                                  mamba_states(n * cfg.attn_every)),
-                "attn": attn_zeros(n),
-            }
-        elif gname == "vlm_super":
-            caches[gname] = {
-                "self": attn_zeros(n, cfg.cross_attn_every - 1),
-                "cross": attn_zeros(n, slots=extra_shapes.get("vision_len",
-                                                              cfg.num_vision_tokens)),
-            }
-        elif gname == "dec":
-            caches[gname] = {"self": attn_zeros(n),
-                             "cross": attn_zeros(n, slots=extra_shapes.get("memory_len", 1024))}
-        elif gname == "granite_hybrid":
-            caches[gname] = {"mamba": mamba_states(cfg.layer_pattern.count("M")),
-                             "attn": attn_zeros(cfg.layer_pattern.count("A"))}
-        # 'enc' has no decode-time cache
+        cache = GROUPS[gname].cache
+        if cache is not None:
+            caches[gname] = cache(cfg, max(n, 1), attn_zeros, mamba_zeros, extra_shapes)
     return caches
-
-
-def _decoder_block_decode(p, cfg, h, cache, pos):
-    a_out, cache = attn_decode(p["attn"], cfg, _norm(cfg, h, p["ln1"]), cache, pos)
-    h = h + a_out
-    f_out, _ = _ffn_or_moe(p, cfg, _norm(cfg, h, p["ln2"]), full_capacity=True)
-    return shard_hint(h + f_out, "act"), cache
-
-
-def _mamba_stack_decode(gp, cfg, h, cstack):
-    """Decode through a stack of Mamba2 blocks, writing each block's new
-    state into ``cstack`` in place."""
-    for i in range(gp["w_in"].shape[0]):
-        y, c = mamba_decode(_layer(gp, i), cfg, rmsnorm(h), _layer(cstack, i))
-        h = h + y
-        cstack["conv"][i] = c["conv"]
-        cstack["ssm"][i] = c["ssm"]
-    return h
-
-
-def _granite_hybrid_decode(gp, cfg, h, cstack, pos):
-    """Decode through the granite_hybrid group's layers, writing each Mamba2
-    layer's new state and each attention layer's new K/V row into
-    ``cstack`` in place."""
-    eps, r = cfg.rms_norm_eps, cfg.residual_multiplier
-    layers = {n: gp[n] for n in _HYBRID_LAYER}
-    seen = {"M": 0, "A": 0}
-    for i, kind in enumerate(cfg.layer_pattern):
-        p, j = _layer(layers, i), seen[kind]
-        seen[kind] += 1
-        x = rmsnorm(h, p["ln1"], eps)
-        if kind == "M":
-            mc = cstack["mamba"]
-            y, c = mamba_decode(_layer(gp["mamba"], j), cfg, x, _layer(mc, j), eps=eps)
-            mc["conv"][j] = c["conv"]
-            mc["ssm"][j] = c["ssm"]
-        else:
-            y, _ = attn_decode(_layer(gp["attn"], j), cfg, x, _layer(cstack["attn"], j), pos,
-                               use_rope=cfg.position_embedding_type != "nope",
-                               scale=cfg.attention_multiplier)
-        h = h + y * r
-        f, _ = _moe_shared(p, cfg, rmsnorm(h, p["ln2"], eps))
-        h = h + f * r
-    return h
 
 
 def decode_step(params, cfg: ArchConfig, token, caches):
@@ -705,42 +735,10 @@ def decode_step(params, cfg: ArchConfig, token, caches):
     and returned."""
     pos = caches["pos"]
     h = shard_hint(_embed(cfg, params["embed"][token.long()[:, None]]), "act")
-    for gname, n in build_program(cfg):
-        if gname == "enc":
-            continue
-        gp, cstack = params["groups"][gname], caches[gname]
-        if gname == "decoder":
-            for i in range(n):
-                h, _ = _decoder_block_decode(_layer(gp, i), cfg, h, _layer(cstack, i), pos)
-        elif gname == "mamba":
-            h = _mamba_stack_decode(gp, cfg, h, cstack)
-        elif gname == "zamba_super":
-            shared = params["shared_attn"]
-            for i in range(n):
-                h = _mamba_stack_decode(_layer(gp["mamba"], i), cfg, h,
-                                        _layer(cstack["mamba"], i))
-                h, _ = _decoder_block_decode(shared, cfg, h, _layer(cstack["attn"], i), pos)
-        elif gname == "vlm_super":
-            for i in range(n):
-                sp, sc = _layer(gp["self"], i), _layer(cstack["self"], i)
-                for j in range(cfg.cross_attn_every - 1):
-                    h, _ = _decoder_block_decode(_layer(sp, j), cfg, h, _layer(sc, j), pos)
-                xp = _layer(gp["cross"], i)
-                a_out, _ = attn_decode(xp["attn"], cfg, _norm(cfg, h, xp["ln1"]),
-                                       _layer(cstack["cross"], i), pos, cross=True)
-                h = h + torch.tanh(xp["gate"]).to(h.dtype) * a_out
-                h = h + ffn_apply(xp["ffn"], _norm(cfg, h, xp["ln2"]), cfg.ffn_type)
-        elif gname == "granite_hybrid":
-            h = _granite_hybrid_decode(gp, cfg, h, cstack, pos)
-        else:  # dec
-            for i in range(n):
-                p, c = _layer(gp, i), _layer(cstack, i)
-                a_out, _ = attn_decode(p["self"], cfg, _norm(cfg, h, p["ln1"]), c["self"], pos)
-                h = h + a_out
-                x_out, _ = attn_decode(p["cross"], cfg, _norm(cfg, h, p["ln_x"]), c["cross"],
-                                       pos, cross=True)
-                h = h + x_out
-                h = h + ffn_apply(p["ffn"], _norm(cfg, h, p["ln2"]), cfg.ffn_type)
+    for gname, _ in build_program(cfg):
+        decode = GROUPS[gname].decode
+        if decode is not None:
+            h = decode(params, params["groups"][gname], cfg, h, caches[gname], pos)
     logits = _logits(params, cfg, h)[:, 0]
     caches["pos"] = pos + 1
     return logits, caches

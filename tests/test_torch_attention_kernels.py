@@ -30,7 +30,7 @@ from repro.kernels import ref as R
 from repro.kernels.gqa_decode import gqa_decode_pallas
 from repro_torch.kernels import ref
 from repro_torch.kernels.gqa_decode import CHUNK
-from repro_torch.models.common import blockwise_attention
+from repro_torch.kernels.ref import blockwise_attention
 
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 B, HKV = 3, 2

@@ -87,8 +87,7 @@ def test_counts_agree_on_mesh_meta_cpu_and_extrapolation(arch, kind):
     with fake_mesh((2, 2), ("data", "model")) as mesh:
         fn, args = make_step(cfg, mesh, shape, **_kw(kind))
         sharded = _count(fn, args)
-        extrapolated = dryrun._extrapolated_cost(shape, mesh, cfg, attn_impl="blockwise",
-                                                 serve_mode="serve")
+        extrapolated = dryrun._extrapolated_cost(shape, mesh, cfg, serve_mode="serve")
     assert sharded["coll"]["counts"]["all-gather"] + sharded["coll"]["counts"]["all-reduce"] > 0
     fn, args = make_step(cfg, make_host_mesh("meta"), shape, **_kw(kind))
     meta = _count(fn, args)
@@ -214,7 +213,7 @@ def test_run_one_writes_a_well_formed_record(arch, shape_name, monkeypatch, tmp_
     assert set(rec) == _RECORD_KEYS and rec["status"] == "ok"
     assert (rec["arch"], rec["shape"], rec["mesh"], rec["chips"]) == \
         (get_config(arch).name, shape_name, "single", 256)
-    assert rec["note"] == "attn=blockwise mode=serve"
+    assert rec["note"] == "mode=serve"
     assert set(rec["coll_detail"]["bytes"]) == {"all-gather", "all-reduce", "reduce-scatter",
                                                 "all-to-all", "collective-permute"}
     assert rec["hlo_gflops"] > 0 and rec["model_gflops"] > 0 and rec["useful_ratio"] > 0

@@ -1,5 +1,5 @@
 """RoPE in the port (``kernels.ops.rope``) on the CPU: the plain version
-``kernels.ref.rope_ref`` against ``models.common.apply_rope`` bit for bit,
+``kernels.ref.rope_ref`` against the former chain (:func:`apply_rope`) bit for bit,
 the kernel's frequency table against the former expression, the autograd Function's
 backward against autograd through the chain, the meta path, the attention
 layers against their former formulation bit for bit, and where the models
@@ -12,10 +12,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.ref import rope_freqs
 from repro_torch.kernels.rope import freq_table, rope_cuda
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.attention import attn_apply, attn_decode, attn_init
-from repro_torch.models.common import apply_rope, rope_freqs
+from repro_torch.models.common import wide
 
 THETAS = (1e4, 5e5, 5e6)
 
@@ -101,6 +102,16 @@ def test_cpu_dispatch_launches_nothing_and_the_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rope_cuda(x, 0, 1e4)
     assert _build.LAUNCHES == before
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """The former ``models.common.apply_rope``, the attention layers' chain
+    before the kernel.  x: [..., S, Dh]; positions: broadcastable to [..., S]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)               # [Dh/2]
+    angles = positions[..., None].float() * freqs                   # [..., S, Dh/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = wide(x).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def _old_rope(x, pos0, theta):

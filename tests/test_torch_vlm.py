@@ -28,10 +28,10 @@ from repro.models import transformer as RT
 from repro.train.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch import params as P
 from repro_torch.configs import get_config
+from repro_torch.kernels.ref import blockwise_attention
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import attention as TA
 from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
-from repro_torch.models.common import blockwise_attention
 from repro_torch.models.config import ArchConfig
 
 ARCH = "llama-3.2-vision-90b"

@@ -135,9 +135,11 @@ def test_mamba_block_apply_and_decode_match_reference(model):
 
 @pytest.mark.parametrize("ffn_type", ["swiglu", "gelu"])
 def test_common_blocks_match_reference(ffn_type):
-    """``rmsnorm``, ``apply_rope`` and ``ffn_apply`` on the reference's
-    parameters (gelu is the tanh form, as ``jax.nn.gelu``)."""
+    """``rmsnorm``, RoPE (``kernels.ref.rope_ref`` against ``apply_rope``)
+    and ``ffn_apply`` on the reference's parameters (gelu is the tanh form,
+    as ``jax.nn.gelu``)."""
     from repro.models import common as RC
+    from repro_torch.kernels.ref import rope_ref
     from repro_torch.models import common as TC
 
     rng = np.random.default_rng(11)
@@ -148,7 +150,7 @@ def test_common_blocks_match_reference(ffn_type):
         TC.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
         _np(RC.rmsnorm(jnp.asarray(x), jnp.asarray(scale))), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(
-        TC.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 500_000.0).numpy(),
+        rope_ref(torch.from_numpy(x), 0, 500_000.0).numpy(),
         _np(RC.apply_rope(jnp.asarray(x), jnp.asarray(pos), 500_000.0)),
         atol=1e-5, rtol=1e-5)
     ffn = RC.ffn_init(jax.random.PRNGKey(3), 64, 96, ffn_type, jnp.float32)

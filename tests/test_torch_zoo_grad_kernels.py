@@ -31,8 +31,8 @@ from repro.kernels import ref as RK
 from repro.models import common as RC
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ref import blockwise_attention
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.models.common import blockwise_attention
 
 ATTN_TOL = dict(atol=2e-5, rtol=2e-5)
 SSD_TOL = 1e-4      # of each gradient's scale

@@ -18,7 +18,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.gqa_decode import gqa_decode_pallas
 from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.models.common import blockwise_attention
+from repro_torch.kernels.ref import blockwise_attention
 
 RNG = np.random.default_rng(12)
 F32 = dict(atol=2e-5, rtol=2e-5)

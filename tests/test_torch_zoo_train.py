@@ -151,7 +151,8 @@ NESTED = {"zamba_super": "mamba", "vlm_super": "self"}
 
 def _select_layers(stacked):
     """The forward's layers as ``t[i]`` views of each stacked leaf."""
-    return [T._layer(stacked, i) for i in range(P.tree_leaves(stacked)[0].shape[0])]
+    return [P.tree_map(lambda t: t[i], stacked)
+            for i in range(P.tree_leaves(stacked)[0].shape[0])]
 
 
 @pytest.mark.parametrize("use_remat", [False, True], ids=["plain", "remat"])
